@@ -1,0 +1,259 @@
+// Trilinear frustum lift of the DeepVoxels generator, forward (K3), backward
+// (K4) and their windowed pair (K5), for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels `_lift_fwd_kernel`, `_lift_bwd_kernel`,
+// `_lift_fwd_kernel_win` and `_lift_bwd_kernel_win` in
+// rgbd_gan_tpu/ops/trilinear_pallas.py. Those keep the 32^3 grid resident in
+// fast memory and contract weighted one-hot matrices on the MXU, because a
+// TPU gathers badly. On this card a gather is a load, so the kernels here
+// read the eight corners of each frustum cell directly.
+//
+// Semantics (those of `trilinear_lift_pallas` and `_trilinear_dv_pallas`):
+//   voxel (B, G, G, G, C) f32, coords (B, 3, N) f32, mask (B, N) bytes
+//   -> out (B, N, C) f32;  gbar (B, N, C) -> dV (B, G, G, G, C) f32.
+//   coords row 2 indexes grid dim0, row 1 dim1, row 0 dim2. Per axis
+//   i0 = clamp(int(idx), 0, G-1), i1 = min(i0+1, G-1), frac = idx - i0; where
+//   i1 == i0 the two weights are added into one. A cell whose mask is 0
+//   writes C zeros (adds nothing to dV) and reads neither the grid nor the
+//   cotangent: its coordinates may hold any value, so the mask is tested
+//   before any index is made from them. No gradient goes to the coordinates.
+//
+//   bf16 mode (operands bf16, f32 accumulation) rounds where the Pallas
+//   kernels round: the grid values, the fused (dim0, dim1) weight, the dim2
+//   weight, the (dim0, dim1)-collapsed partial sum, and its product with the
+//   dim2 weight; in the backward the cotangent and its product with the dim2
+//   weight. All sums are f32.
+//
+//   Windowed mode: per tile of 1024 consecutive cells (depth-major order),
+//   s = clamp(min over the tile's valid cells of the dim1 index i0, 0, G-w),
+//   and every corner whose dim1 index lies outside [s, s+w) is dropped. A
+//   tile without a valid cell gives zeros. Equal to the full kernels when
+//   each tile's valid cells span at most w dim1-planes.
+//
+// Bound: memory traffic. At the training shapes (B=10, G=32, C=32,
+// N=229,376) the forward writes 294 MB and reads 42 MB of grid and 37 MB of
+// coordinates and mask; the backward reads the 294 MB cotangent. The window
+// saves no work here: a corner outside it is simply not read. One block per
+// tile of 1024 cells; a thread takes one (cell, channel) pair at a time, so
+// for C = 32 a warp is one cell, each corner is one coalesced 128-byte read
+// (or one line of atomics), and the output row one coalesced write. The 4 MB
+// grid of a batch item stays in L2. K4 accumulates with f32 atomicAdd into
+// a zeroed buffer, so its summation order changes from run to run.
+//
+// Plain C interface (bound with ctypes). Each entry point launches on the
+// given stream and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 1024;  // cells per tile, as TILE_N of the Pallas kernels
+
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+struct Axis {
+  int i0, i1;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Axis axis_terms(float idx, int G) {
+  Axis a;
+  a.i0 = min(max((int)idx, 0), G - 1);  // the cast truncates toward zero
+  a.i1 = min(a.i0 + 1, G - 1);
+  const float f = idx - (float)a.i0;
+  a.w0 = 1.f - f;
+  a.w1 = f;
+  if (a.i1 == a.i0) {  // last plane: one corner with both weights
+    a.w0 = a.w0 + a.w1;
+    a.w1 = 0.f;
+  }
+  return a;
+}
+
+// Start of the tile's dim1 window, or -1 when the tile has no valid cell.
+// Every thread of the block must call it.
+__device__ __forceinline__ int window_start(const float* __restrict__ cy,
+                                            const uint8_t* __restrict__ m,
+                                            int ncell, int G, int window) {
+  __shared__ int s_min;
+  if (threadIdx.x == 0) s_min = G;
+  __syncthreads();
+  int local = G;  // sentinel for masked cells
+  for (int i = threadIdx.x; i < ncell; i += blockDim.x) {
+    if (m[i]) local = min(local, min(max((int)cy[i], 0), G - 1));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    local = min(local, __shfl_xor_sync(0xffffffffu, local, o));
+  if ((threadIdx.x & 31) == 0) atomicMin(&s_min, local);
+  __syncthreads();
+  const int s = s_min;
+  if (s >= G) return -1;
+  return min(max(s, 0), G - window);
+}
+
+struct Cell {
+  Axis x, y, z;        // grid dim0, dim1, dim2
+  float a[2][2];       // fused (dim0, dim1) weights, rounded
+  float wz[2];         // dim2 weights, rounded
+};
+
+template <bool BF16, bool WIN>
+__device__ __forceinline__ Cell cell_terms(float cx, float cy, float cz, int G,
+                                           int s, int window) {
+  Cell c;
+  c.x = axis_terms(cx, G);
+  c.y = axis_terms(cy, G);
+  c.z = axis_terms(cz, G);
+  if (WIN) {  // i0 >= s always holds for a valid cell
+    if (c.y.i0 >= s + window) c.y.w0 = 0.f;
+    if (c.y.i1 >= s + window) c.y.w1 = 0.f;
+  }
+  c.a[0][0] = rnd<BF16>(c.x.w0 * c.y.w0);
+  c.a[0][1] = rnd<BF16>(c.x.w0 * c.y.w1);
+  c.a[1][0] = rnd<BF16>(c.x.w1 * c.y.w0);
+  c.a[1][1] = rnd<BF16>(c.x.w1 * c.y.w1);
+  c.wz[0] = rnd<BF16>(c.z.w0);
+  c.wz[1] = rnd<BF16>(c.z.w1);
+  return c;
+}
+
+// ---------------------------------------------------------------- K3, K5
+
+template <bool BF16, bool WIN>
+__global__ void lift_fwd_kernel(const float* __restrict__ voxel,
+                                const float* __restrict__ coords,
+                                const uint8_t* __restrict__ mask,
+                                float* __restrict__ out, int G, int C, int N,
+                                int window) {
+  const int b = blockIdx.y;
+  const int cell0 = blockIdx.x * kTile;
+  const int ncell = min(kTile, N - cell0);
+  const float* cz = coords + ((int64_t)b * 3 + 0) * N + cell0;  // grid dim2
+  const float* cy = coords + ((int64_t)b * 3 + 1) * N + cell0;  // grid dim1
+  const float* cx = coords + ((int64_t)b * 3 + 2) * N + cell0;  // grid dim0
+  const uint8_t* m = mask + (int64_t)b * N + cell0;
+  float* o = out + ((int64_t)b * N + cell0) * C;
+  const float* vb = voxel + (int64_t)b * G * G * G * C;
+  const int total = ncell * C;
+
+  int s = 0;
+  if (WIN) {
+    s = window_start(cy, m, ncell, G, window);
+    if (s < 0) {
+      for (int e = threadIdx.x; e < total; e += blockDim.x) o[e] = 0.f;
+      return;
+    }
+  }
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int cell = e / C;
+    const int ch = e - cell * C;
+    float acc = 0.f;
+    if (m[cell]) {
+      const Cell c = cell_terms<BF16, WIN>(cx[cell], cy[cell], cz[cell], G, s, window);
+      const float* v = vb + ch;
+      const int64_t r00 = ((int64_t)c.x.i0 * G + c.y.i0) * G;
+      const int64_t r01 = ((int64_t)c.x.i0 * G + c.y.i1) * G;
+      const int64_t r10 = ((int64_t)c.x.i1 * G + c.y.i0) * G;
+      const int64_t r11 = ((int64_t)c.x.i1 * G + c.y.i1) * G;
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const int zi = d == 0 ? c.z.i0 : c.z.i1;
+        float t = c.a[0][0] * rnd<BF16>(v[(r00 + zi) * C]);
+        t += c.a[0][1] * rnd<BF16>(v[(r01 + zi) * C]);
+        t += c.a[1][0] * rnd<BF16>(v[(r10 + zi) * C]);
+        t += c.a[1][1] * rnd<BF16>(v[(r11 + zi) * C]);
+        acc += rnd<BF16>(rnd<BF16>(t) * c.wz[d]);
+      }
+    }
+    o[e] = acc;
+  }
+}
+
+// ---------------------------------------------------------------- K4, K5
+
+template <bool BF16, bool WIN>
+__global__ void lift_bwd_kernel(const float* __restrict__ coords,
+                                const uint8_t* __restrict__ mask,
+                                const float* __restrict__ gbar,
+                                float* __restrict__ dv, int G, int C, int N,
+                                int window) {
+  const int b = blockIdx.y;
+  const int cell0 = blockIdx.x * kTile;
+  const int ncell = min(kTile, N - cell0);
+  const float* cz = coords + ((int64_t)b * 3 + 0) * N + cell0;
+  const float* cy = coords + ((int64_t)b * 3 + 1) * N + cell0;
+  const float* cx = coords + ((int64_t)b * 3 + 2) * N + cell0;
+  const uint8_t* m = mask + (int64_t)b * N + cell0;
+  const float* g = gbar + ((int64_t)b * N + cell0) * C;
+  float* db = dv + (int64_t)b * G * G * G * C;
+  const int total = ncell * C;
+
+  int s = 0;
+  if (WIN) {
+    s = window_start(cy, m, ncell, G, window);
+    if (s < 0) return;
+  }
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int cell = e / C;
+    if (!m[cell]) continue;
+    const int ch = e - cell * C;
+    const Cell c = cell_terms<BF16, WIN>(cx[cell], cy[cell], cz[cell], G, s, window);
+    const float gb = rnd<BF16>(g[e]);
+    float* d = db + ch;
+    const int xi[2] = {c.x.i0, c.x.i1};
+    const int yi[2] = {c.y.i0, c.y.i1};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int zi = k == 0 ? c.z.i0 : c.z.i1;
+      if (c.wz[k] == 0.f) continue;
+      const float ek = rnd<BF16>(c.wz[k] * gb);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float w = c.a[i][j];
+          if (w != 0.f)
+            atomicAdd(d + (((int64_t)xi[i] * G + yi[j]) * G + zi) * C, w * ek);
+        }
+      }
+    }
+  }
+}
+
+// Launch KERNEL<BF16, WIN> for the run-time (bf16, window) pair.
+#define LIFT_DISPATCH(KERNEL, ...)                                                  \
+  do {                                                                              \
+    if (bf16 && window > 0) KERNEL<true, true><<<grid, kThreads, 0, stream>>>(__VA_ARGS__);        \
+    else if (bf16) KERNEL<true, false><<<grid, kThreads, 0, stream>>>(__VA_ARGS__);                \
+    else if (window > 0) KERNEL<false, true><<<grid, kThreads, 0, stream>>>(__VA_ARGS__);          \
+    else KERNEL<false, false><<<grid, kThreads, 0, stream>>>(__VA_ARGS__);                         \
+  } while (0)
+
+}  // namespace
+
+extern "C" int trilinear_lift_fwd(const float* voxel, const float* coords,
+                                  const uint8_t* mask, float* out, int B, int G,
+                                  int C, int N, int bf16, int window,
+                                  cudaStream_t stream) {
+  if ((int64_t)B * N * C == 0) return 0;
+  const dim3 grid((N + kTile - 1) / kTile, B);
+  LIFT_DISPATCH(lift_fwd_kernel, voxel, coords, mask, out, G, C, N, window);
+  return (int)cudaGetLastError();
+}
+
+// dv must be zero-filled by the caller.
+extern "C" int trilinear_lift_bwd(const float* coords, const uint8_t* mask,
+                                  const float* gbar, float* dv, int B, int G,
+                                  int C, int N, int bf16, int window,
+                                  cudaStream_t stream) {
+  if ((int64_t)B * N * C == 0) return 0;
+  const dim3 grid((N + kTile - 1) / kTile, B);
+  LIFT_DISPATCH(lift_bwd_kernel, coords, mask, gbar, dv, G, C, N, window);
+  return (int)cudaGetLastError();
+}

@@ -14,7 +14,7 @@ along v.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,10 +27,16 @@ GATHER_MODES = ("xla", "onehot", "hybrid", "pallas")
 
 
 def intrinsics(
-    size: int, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
+    size: int, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32, base_k=None
 ) -> torch.Tensor:
     """Camera intrinsics K: focal ``2*size``, principal point ``size/2``
-    (``loss_functions.py:48-50``; not centred at (size-1)/2, quirk kept)."""
+    (``loss_functions.py:48-50``; not centred at (size-1)/2, quirk kept).
+    With ``base_k`` given, its first two rows are rescaled so that the
+    principal point maps to ``size/2`` (``loss_functions.py:43-44``)."""
+    if base_k is not None:
+        k = torch.as_tensor(base_k, dtype=torch.float32)[:3, :3].to(device=device, dtype=dtype).clone()
+        k[:2] *= size / k[0, 2] / 2
+        return k
     return torch.tensor(
         [[size * 2.0, 0.0, size / 2.0], [0.0, size * 2.0, size / 2.0], [0.0, 0.0, 1.0]],
         dtype=dtype,
@@ -156,6 +162,9 @@ def rotate_consistency_loss(
     *,
     occlusion_aware: bool = False,
     lambda_geometric: float = 3.0,
+    max_depth: Optional[float] = None,
+    min_depth: Optional[float] = None,
+    base_k=None,
     exact_bilinear: bool = True,
     gather_mode: str = "xla",
 ):
@@ -164,12 +173,14 @@ def rotate_consistency_loss(
 
     ``img``/``img_rot`` (B, H, W, C) with depth last; ``mat``/``mat_rot``
     (B, 4, 4) cam2world. Returns ``(loss, concat([new_zp, new_zp_rot]))``.
-    The JAX package's ``norm``, depth-range and ``base_k`` options are not
-    on the StyleGAN path and are not ported yet.
+    ``base_k`` replaces the default intrinsics (see :func:`intrinsics`);
+    ``max_depth`` / ``min_depth`` keep only the pixels whose own depth lies
+    below / above the limit (masks without gradient). The JAX package's
+    ``norm`` other than L1 is not ported yet.
     """
     b, h, w, c = img.shape
     dev = img.device
-    k = intrinsics(w, device=dev, dtype=img.dtype)
+    k = intrinsics(w, device=dev, dtype=img.dtype, base_k=base_k)
     inv_k = torch.linalg.inv(k)
     p = pixel_grid(w, device=dev, dtype=img.dtype)
 
@@ -212,6 +223,14 @@ def rotate_consistency_loss(
         warped_rot = warped_rot * not_occluded_rot
         warped_target = warped_target * not_occluded
         warped_rot_target = warped_rot_target * not_occluded_rot
+
+    for limit, keep in ((max_depth, torch.lt), (min_depth, torch.gt)):
+        if limit is None:
+            continue
+        near = keep(z.detach().reshape(-1, 1), limit).to(img.dtype)
+        near_rot = keep(z_rot.detach().reshape(-1, 1), limit).to(img.dtype)
+        warped, warped_target = warped * near, warped_target * near
+        warped_rot, warped_rot_target = warped_rot * near_rot, warped_rot_target * near_rot
 
     def criteria(a, b_):
         return torch.mean(torch.abs(a - b_))

@@ -1,7 +1,7 @@
-"""NN components on the StyleGAN RGBD path (PyTorch, NHWC).
+"""NN components on the StyleGAN and DeepVoxels RGBD paths (PyTorch, NHWC).
 
-Port of the subset of :mod:`rgbd_gan_tpu.nn.layers` that the StyleGAN
-train step runs (reference ``common/networks/component/``):
+Port of the subset of :mod:`rgbd_gan_tpu.nn.layers` that the StyleGAN and
+DeepVoxels train steps run (reference ``common/networks/component/``):
 
 - equalized-learning-rate conv/linear (``pggan.py:13-50``): weights drawn
   N(0, 1), the *input* scaled at run time by ``inv_c = gain * sqrt(1/fan_in)``
@@ -11,6 +11,9 @@ train step runs (reference ``common/networks/component/``):
 - nearest 2x upscale, 2x2 average pool, [1,2,1]^2 blur (``rescale.py``)
 - noise injection with one noise map broadcast over channels (``net.py:72-81``)
 - the toRGBD depth-head initialisers (``net.py:211-214``)
+- the 3D twins for the voxel generator: equalized 3D conv (``pggan.py:27-38``,
+  with its ``k**2`` fan-in quirk), nearest 2x unpool over (D, H, W), and
+  Chainer's ``F.normalize`` over channels
 
 Activations are NHWC, as in the JAX package. Conv weights are PyTorch's
 (out, in, kh, kw) and linear weights (out, in); a convolution runs on a
@@ -49,10 +52,22 @@ def adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float =
     return xn * scale.reshape(shape) + bias.reshape(shape)
 
 
+def l2_normalize_channels(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Chainer ``F.normalize``: x / (||x||_2 + eps) over the last axis."""
+    return x / (torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)) + eps)
+
+
 def upscale2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x unpool (``rescale.py:4-5``). NHWC."""
     b, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def upscale2x_3d(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x unpool over (D, H, W). NDHWC."""
+    b, d, h, w, c = x.shape
+    x = x[:, :, None, :, None, :, None, :].expand(b, d, 2, h, 2, w, 2, c)
+    return x.reshape(b, 2 * d, 2 * h, 2 * w, c)
 
 
 def downscale2x(x: torch.Tensor) -> torch.Tensor:
@@ -130,6 +145,37 @@ class EqualizedConv2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d_nhwc(self.inv_c * x, self.weight, self.bias, self.stride, self.padding)
+
+
+class EqualizedConv3D(nn.Module):
+    """3D conv with equalized learning rate (``pggan.py:27-38``), NDHWC, weight
+    (out, in, kd, kh, kw). Quirk kept: ``inv_c`` uses ``k**2``, not ``k**3``.
+    A 1x1x1 conv runs as a matmul over the channel axis, which needs no
+    layout change of a large frustum volume."""
+
+    def __init__(
+        self,
+        in_ch: int,
+        out_ch: int,
+        kernel_size: int = 1,
+        stride: int = 1,
+        padding: int = 0,
+        gain: float = math.sqrt(2.0),
+        use_bias: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.inv_c = gain * math.sqrt(1.0 / (in_ch * kernel_size**2))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size, kernel_size))
+        nn.init.normal_(self.weight, 0.0, 1.0, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel_size == 1 and self.stride == 1 and self.padding == 0:
+            return F.linear(self.inv_c * x, self.weight.flatten(1), self.bias)
+        y = F.conv3d((self.inv_c * x).permute(0, 4, 1, 2, 3), self.weight, self.bias, self.stride, self.padding)
+        return y.permute(0, 2, 3, 4, 1)
 
 
 class NoiseBlock(nn.Module):

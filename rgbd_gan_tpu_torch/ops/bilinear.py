@@ -20,24 +20,19 @@ gradient.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from ._build import load_library, raise_on
+
 # Launches of each kernel since the last reset; the plain CPU path does not
 # count. Reset with ``launches.update(fwd=0, bwd=0)``.
 launches = {"fwd": 0, "bwd": 0}
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "bilinear.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _lib = None
-_lib_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -136,34 +131,15 @@ def bilinear_gather_reference_vjp(
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/bilinear.cu``."""
     global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
-        so = _BUILD_DIR / f"libbilinear_{tag}.so"
-        if not so.exists():
-            from torch.utils.cpp_extension import CUDA_HOME
-
-            nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC),
-            ]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+    if _lib is None:
+        lib = load_library("bilinear")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bilinear_gather_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.bilinear_gather_fwd.restype = i
         lib.bilinear_gather_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bilinear_gather_bwd.restype = i
         _lib = lib
-        return lib
+    return _lib
 
 
 def build() -> Path:
@@ -195,11 +171,6 @@ def _check_cuda(img: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError("for C=4 the image must be 16-byte aligned (float4 loads)")
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def _fwd(img, u, v, exact: bool) -> torch.Tensor:
     _check(img, u, v)
     if img.device.type == "cpu":
@@ -217,7 +188,7 @@ def _fwd(img, u, v, exact: bool) -> torch.Tensor:
             img.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, w, c, n, int(exact), stream,
         )
-    _raise_on(err, "bilinear_gather_fwd")
+    raise_on(err, "bilinear_gather_fwd")
     launches["fwd"] += 1
     return out
 
@@ -242,7 +213,7 @@ def _bwd(img, u, v, g, exact: bool):
             dimg.data_ptr(), du.data_ptr(), dv.data_ptr(),
             b, h, w, c, n, int(exact), stream,
         )
-    _raise_on(err, "bilinear_gather_bwd")
+    raise_on(err, "bilinear_gather_bwd")
     launches["bwd"] += 1
     return dimg, du, dv
 

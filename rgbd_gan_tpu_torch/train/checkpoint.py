@@ -3,7 +3,10 @@
 ``Generator_{tag}.npz``, ``Discriminator_{tag}.npz``,
 ``SmoothedGenerator_{tag}.npz`` and ``snapshot_iter_{tag}.npz`` hold flat
 ``/``-joined keys with JAX layouts (``train/checkpoint.py:31-118`` of the
-JAX package), so either package reads the other's model files. The trainer
+JAX package), so either package reads the other's model files. A generator
+with BatchNorm statistics (DeepVoxels with the softmax occlusion net) is
+written as ``params/...`` plus ``batch_stats/...``; a DeepVoxels run also
+writes its mapping network to ``Map_{tag}.npz``. The trainer
 snapshot stores the optimizer moments under the optax state paths
 (``opt_gen/1/0/mu/...``), the iteration, and the state of the port's
 ``torch.Generator`` under ``rng_state`` (the JAX package stores a PRNG key).
@@ -18,7 +21,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..bridge import jax_to_torch, load_jax_params, strip_prefix, torch_to_jax
+from ..bridge import (
+    jax_to_torch,
+    load_jax_params,
+    load_jax_variables,
+    module_to_jax,
+    params_to_jax,
+    strip_prefix,
+    torch_to_jax,
+)
 from .optim import ClippedAdam
 from .state import TrainState
 
@@ -58,13 +69,16 @@ def _opt_from_flat(opt: ClippedAdam, flat: Dict[str, np.ndarray], prefix: str) -
 def save_snapshot(out_dir: str, state: TrainState, rng_state: torch.Tensor, tag: str, config) -> None:
     """Write the per-model and trainer artifacts for ``tag`` (an iteration or 'latest')."""
     os.makedirs(out_dir, exist_ok=True)
-    save_tree(os.path.join(out_dir, f"Generator_{tag}.npz"), torch_to_jax(state.gen.state_dict()))
+    save_tree(os.path.join(out_dir, f"Generator_{tag}.npz"), module_to_jax(state.gen))
+    if config.generator_architecture == "deepvoxels":
+        # extra mapping artifact for layout parity (train_rgbd.py:374-377)
+        save_tree(os.path.join(out_dir, f"Map_{tag}.npz"), params_to_jax(state.gen.mapping))
     dis = {f"params/{k}": v for k, v in torch_to_jax(state.dis.state_dict()).items()}
     save_tree(os.path.join(out_dir, f"Discriminator_{tag}.npz"), dis)
     if config.keep_smoothed_gen and state.ema_gen is not None:
         save_tree(
             os.path.join(out_dir, f"SmoothedGenerator_{tag}.npz"),
-            torch_to_jax(state.ema_gen.state_dict()),
+            params_to_jax(state.ema_gen),
         )
     trainer = {
         **_opt_to_flat(state.opt_map, "opt_map"),
@@ -80,11 +94,11 @@ def load_snapshot(out_dir: str, state: TrainState, tag: str, config) -> Optional
     """Load the artifacts for ``tag`` into ``state`` in place; returns the saved
     ``torch.Generator`` state, or None when the snapshot came from the JAX
     package."""
-    load_jax_params(state.gen, load_tree(os.path.join(out_dir, f"Generator_{tag}.npz")))
+    load_jax_variables(state.gen, load_tree(os.path.join(out_dir, f"Generator_{tag}.npz")))
     load_jax_params(state.dis, load_tree(os.path.join(out_dir, f"Discriminator_{tag}.npz")), "params/")
     ema_path = os.path.join(out_dir, f"SmoothedGenerator_{tag}.npz")
     if config.keep_smoothed_gen and state.ema_gen is not None and os.path.exists(ema_path):
-        load_jax_params(state.ema_gen, load_tree(ema_path))
+        load_jax_params(state.ema_gen, load_tree(ema_path), params_only=True)
     trainer = load_tree(os.path.join(out_dir, f"snapshot_iter_{tag}.npz"))
     _opt_from_flat(state.opt_map, trainer, "opt_map")
     _opt_from_flat(state.opt_gen, trainer, "opt_gen")

@@ -7,7 +7,7 @@ Port of :mod:`rgbd_gan_tpu.train.losses` (reference
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,10 +20,15 @@ def l2_loss(h: torch.Tensor, t) -> torch.Tensor:
     return torch.mean((h - t) ** 2)
 
 
-def gen_adv_loss(y_fake: torch.Tensor) -> torch.Tensor:
-    """Non-saturating softplus generator loss (``loss_functions.py:11-14``);
-    the shipped updaters call it with focal gamma 0."""
-    return torch.mean(F.softplus(-y_fake))
+def gen_adv_loss(y_fake: torch.Tensor, focal_loss_gamma: Optional[float] = 0.0) -> torch.Tensor:
+    """Non-saturating softplus generator loss with optional focal weighting
+    ``sigmoid(-y)**gamma`` (``loss_functions.py:11-14``). The RGBD updater
+    calls it with gamma 0 whatever the yml says; the DeepVoxels updater
+    passes the yml's ``focal_loss_gamma``."""
+    loss = F.softplus(-y_fake)
+    if focal_loss_gamma:
+        loss = loss * torch.sigmoid(-y_fake) ** focal_loss_gamma
+    return torch.mean(loss)
 
 
 def dis_adv_loss(y_fake: torch.Tensor, y_real: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,164 @@
+"""The DeepVoxels train step (reference ``updater_deepvoxels.py:76-252``) —
+port of :func:`rgbd_gan_tpu.train.steps_deepvoxels.make_deepvoxels_train_step`.
+
+What differs from the RGBD step, all as in the reference:
+
+- the stage is pinned at 8.5: the progressive discriminator runs its even
+  stage 8 graph at a fixed 64x64, and the reals are average-pooled to 64
+- the generator's adversarial loss uses ``focal_loss_gamma``
+- the 3D-consistency loss takes the projection intrinsic as K, its weight is
+  fixed at 0.3 (the reference's yml key is misspelt, so it cannot be
+  overridden), the depth-floor term is added whenever the loss is on, and
+  the occlusion-aware mask is never passed
+- the discriminator phase renders fresh, unpaired latents through the
+  *updated* generator, with no gradient, instead of reusing the G-phase fakes
+- the mapping network is updated twice per step: by its own alpha/100
+  optimizer and again inside the whole-generator optimizer, from the same
+  gradients
+- an occlusion net with BatchNorm updates its running statistics in both
+  generator forwards
+
+The step mutates the state in place.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..geometry.camera import camera_matrices, theta_to_9dof
+from ..geometry.warp import rotate_consistency_loss
+from ..models.deepvoxels import PROJECTION_INTRINSIC
+from .ema import soft_copy_params
+from .losses import dis_adv_loss, dis_out_and_r1, gen_adv_loss
+from .state import TrainState
+from .steps import StepSpec, _to_unit_range
+
+DEEPVOXELS_STAGE = 8  # floor of the pinned 8.5
+IMG_SIZE = 64
+LAMBDA_ROTATE_FIXED = 0.3  # the misspelt yml key makes this unoverridable
+
+
+def _avg_pool_to(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Plain average pool of NHWC reals to ``size`` (``updater_deepvoxels.py:23-26``)."""
+    scale = x.shape[1] // size
+    if scale <= 1:
+        return x
+    b, h, w, c = x.shape
+    return x.reshape(b, size, scale, size, scale, c).mean(dim=(2, 4))
+
+
+def make_deepvoxels_train_step(
+    make_hidden: Callable[[Optional[torch.Generator], int], torch.Tensor],
+    prior,
+    spec: StepSpec,
+    focal_loss_gamma: float = 0.0,
+    background_generator: bool = False,
+):
+    """Build the DeepVoxels train step for ``spec`` (exact bilinear sampling,
+    R1 every step); raises ``NotImplementedError`` for the options that are
+    not ported.
+
+    ``make_hidden(generator, n)`` draws n latents on the state's device.
+    Returns ``step(state, x_real_full, alpha, generator=None, *, z=None,
+    z2=None, thetas6=None, z_d=None, z2_d=None) -> (state, metrics)``: the
+    keyword tensors replace the step's own draws (``z``, ``z2``: the paired
+    (B, ch) latents of the generator phase; ``z_d``, ``z2_d``: the unpaired
+    ones of the discriminator phase).
+    """
+    unported = {
+        "background_generator": background_generator,
+        "sn": spec.sn,
+        "axis_name": spec.axis_name is not None,
+    }
+    if any(unported.values()):
+        raise NotImplementedError(f"not ported yet: {', '.join(k for k, v in unported.items() if v)}")
+    if spec.r1_interval > 1:
+        raise ValueError("r1_interval > 1 is not supported by the deepvoxels step")
+    half = spec.batch_size // 2
+    stage = DEEPVOXELS_STAGE
+
+    def step(
+        state: TrainState,
+        x_real_full: torch.Tensor,
+        alpha: float,
+        generator: Optional[torch.Generator] = None,
+        *,
+        z: Optional[torch.Tensor] = None,
+        z2: Optional[torch.Tensor] = None,
+        thetas6: Optional[torch.Tensor] = None,
+        z_d: Optional[torch.Tensor] = None,
+        z2_d: Optional[torch.Tensor] = None,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        gen, dis = state.gen, state.dis
+        device = x_real_full.device
+        # paired latents for both styles (updater_deepvoxels.py:146-148)
+        if z is None:
+            z = torch.cat([make_hidden(generator, half)] * 2, dim=0)
+        if z2 is None:
+            z2 = torch.cat([make_hidden(generator, half)] * 2, dim=0)
+        if thetas6 is None:
+            thetas6 = prior.sample(generator, spec.batch_size, device)
+        if z_d is None:
+            z_d = make_hidden(generator, spec.batch_size)
+        if z2_d is None:
+            z2_d = make_hidden(generator, spec.batch_size)
+        z, z2, thetas6, z_d, z2_d = (t.to(device) for t in (z, z2, thetas6, z_d, z2_d))
+        mats = camera_matrices(thetas6)
+        theta9 = theta_to_9dof(thetas6)
+        x_real = _avg_pool_to(_to_unit_range(x_real_full), IMG_SIZE)
+
+        # ---------------- generator phase ----------------
+        dis.requires_grad_(False)
+        gen.requires_grad_(True)
+        x_fake = gen(z, mats, z2, theta9)
+        y_fake = dis(x_fake[..., :3], stage, alpha)
+        loss_gen = gen_adv_loss(y_fake, focal_loss_gamma)
+        metrics = {"gen/loss_adv": loss_gen.detach()}
+        if spec.use_rotate:
+            loss_rotate, _ = rotate_consistency_loss(
+                x_fake[:half], mats[:half], x_fake[half:], mats[half:],
+                lambda_geometric=spec.lambda_geometric, base_k=PROJECTION_INTRINSIC,
+                gather_mode=spec.gather_mode,
+            )
+            loss_rotate = loss_rotate + spec.lambda_depth * torch.mean(
+                torch.relu(spec.depth_min - x_fake[..., -1]) ** 2
+            )
+            metrics["gen/loss_rotate"] = loss_rotate.detach()
+            loss_gen = loss_gen + loss_rotate * LAMBDA_ROTATE_FIXED
+
+        # the map optimizer first, then the whole-generator optimizer over the
+        # same gradients (the mapping is in both: train_rgbd.py:335-343)
+        map_params = list(gen.mapping.parameters())
+        grads = torch.autograd.grad(loss_gen, map_params + state.opt_gen.params, allow_unused=True)
+        state.opt_map.step(grads[: len(map_params)])
+        state.opt_gen.step(grads[len(map_params):])
+        gen.requires_grad_(False)
+        if spec.keep_smoothed_gen and state.ema_gen is not None:
+            soft_copy_params(state.ema_gen, gen, 1.0 - spec.smoothing)
+
+        # ---------------- discriminator phase ----------------
+        # fresh unpaired latents through the *updated* generator, no gradient
+        with torch.no_grad():
+            x_fake_rgb = gen(z_d, mats, z2_d, theta9)[..., :3]
+        dis.requires_grad_(True)
+        y_fake = dis(x_fake_rgb, stage, alpha)
+        if spec.lambda_gp > 0:
+            y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_real)
+            gp = spec.lambda_gp * gp_raw
+            loss_dis = dis_adv_loss(y_fake, y_real) + gp
+            metrics["dis/loss_gp"] = gp.detach()
+        else:
+            loss_dis = dis_adv_loss(y_fake, dis(x_real, stage, alpha))
+        metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
+        state.opt_dis.step(torch.autograd.grad(loss_dis, state.opt_dis.params, allow_unused=True))
+        dis.requires_grad_(False)
+
+        metrics["stage"] = torch.tensor(8.5, device=device)
+        metrics["image_size"] = torch.tensor(float(IMG_SIZE), device=device)
+        metrics["nan"] = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
+        state.iteration += 1
+        return state, metrics
+
+    return step

@@ -1,16 +1,20 @@
-"""Training driver for the StyleGAN RGBD path: builds models, optimizers and
-the step from a config and runs the iteration loop.
+"""Training loop for the StyleGAN and DeepVoxels RGBD paths: builds models,
+optimizers and the step from a config and runs the iteration loop.
 
-Port of the StyleGAN part of :mod:`rgbd_gan_tpu.train.trainer` (reference
-``train_rgbd.py:261-474``): model and optimizer wiring (mapping at
-alpha/100 in its own clipping domain, ``l1``/``l2`` at alpha/100 inside the
-synthesis domain), the piecewise-linear stage schedule, the per-iteration
-NaN guard, the reference's report keys, ``log.jsonl``, snapshots and
-resume. Float32 stays float32: TF32 is switched off for matmuls and convs.
+Port of the StyleGAN and DeepVoxels parts of :mod:`rgbd_gan_tpu.train.trainer`
+(reference ``train_rgbd.py:261-474``): model and optimizer wiring (mapping
+at alpha/100 in its own clipping domain; for StyleGAN ``l1``/``l2`` at
+alpha/100 inside the synthesis domain, for DeepVoxels one optimizer over the
+whole generator, mapping included), the piecewise-linear stage schedule
+(DeepVoxels is pinned at stage 8.5, 64 px), the per-iteration NaN guard, the
+reference's report keys, ``log.jsonl``, snapshots and resume. Float32 stays
+float32: TF32 is switched off for matmuls and convs.
 
-Not on this path yet, and refused: DCGAN and DeepVoxels generators,
-spectral norm, ``rotate_feature``, occupancy, lazy R1, ``mixed16``,
-``use_mpi`` and ``step_window > 1``. Preview images wait for the eval port.
+Not on these paths yet, and refused: the DCGAN generator, spectral norm,
+``rotate_feature``, occupancy, lazy R1, ``mixed16``, ``use_mpi`` and
+``step_window > 1``; of DeepVoxels the background generator,
+``rendernet_projection`` and ``occlusion_type: occlusion_unet``. Preview
+images wait for the eval port.
 """
 
 from __future__ import annotations
@@ -27,12 +31,14 @@ from ..core.stage import decompose_stage, parse_stage_interval, stage_at
 from ..data.dataset import ImageDataset, prepare_dataset
 from ..geometry.prior import CameraParamPrior
 from ..models.discriminator import Discriminator
+from ..models.deepvoxels import build_deepvoxels_generator
 from ..models.generators import StyleGANGenerator, stylegan_make_hidden
 from . import checkpoint as ckpt
 from .ema import copy_params
 from .optim import make_optimizer, make_stylegan_gen_optimizer
 from .state import TrainState
 from .steps import StepSpec, make_rgbd_train_step
+from .steps_deepvoxels import DEEPVOXELS_STAGE, make_deepvoxels_train_step
 
 REPORT_KEYS = [
     "iteration",
@@ -49,9 +55,22 @@ REPORT_KEYS = [
 ]
 
 
+ARCHITECTURES = ("stylegan", "deepvoxels")
+
+
 def _check_config(config) -> None:
+    deepvoxels = config.generator_architecture == "deepvoxels"
+    if deepvoxels and config.r1_interval and int(config.r1_interval) > 1:
+        raise ValueError(
+            "r1_interval > 1 is not supported by the deepvoxels step "
+            "(lazy R1 belongs to the stylegan/dcgan rgbd and rgb paths only)"
+        )
     unported = {
-        "generator_architecture != stylegan": config.generator_architecture != "stylegan",
+        f"generator_architecture {config.generator_architecture}":
+            config.generator_architecture not in ARCHITECTURES,
+        "background_generator": deepvoxels and bool(config.background_generator),
+        "rendernet_projection": deepvoxels and bool(config.rendernet_projection),
+        "occlusion_type occlusion_unet": deepvoxels and config.occlusion_type == "occlusion_unet",
         "rgb": bool(config.rgb),
         "sn": bool(config.sn),
         "rotate_feature": bool(config.rotate_feature),
@@ -72,8 +91,11 @@ def _check_config(config) -> None:
         raise NotImplementedError("optical flow loss is not supported (updater.py:374)")
 
 
-def setup_generator(config, generator: Optional[torch.Generator] = None):
-    """StyleGAN generator and its latent sampler (``train_rgbd.py:220-246``)."""
+def setup_generator(config, generator: Optional[torch.Generator] = None, on_cuda: bool = False):
+    """The generator and its latent sampler (``train_rgbd.py:220-246``);
+    ``on_cuda`` says where it will run (it decides the DeepVoxels lift mode)."""
+    if config.generator_architecture == "deepvoxels":
+        return build_deepvoxels_generator(config, generator, on_cuda)
     initial_depth = config.initial_depth if config.initial_depth is not None else 1.0
     gen = StyleGANGenerator(
         config.ch, enable_blur=bool(config.enable_blur), rgbd=True,
@@ -114,7 +136,8 @@ class Trainer:
         self.batch_size = config.batchsize
 
         init_gen = torch.Generator().manual_seed(seed)
-        gen, make_hidden = setup_generator(config, init_gen)
+        self.arch = config.generator_architecture
+        gen, make_hidden = setup_generator(config, init_gen, self.device.type == "cuda")
         dis = setup_discriminator(config, init_gen)
         gen.to(self.device).requires_grad_(False)
         dis.to(self.device).requires_grad_(False)
@@ -127,7 +150,12 @@ class Trainer:
             gen=gen,
             dis=dis,
             opt_map=make_optimizer(gen.mapping.named_parameters(), a_g / 100, b1, b2),
-            opt_gen=make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2),
+            # deepvoxels: the mapping is also inside the whole-generator
+            # optimizer (train_rgbd.py:335-343)
+            opt_gen=(
+                make_optimizer(gen.named_parameters(), a_g, b1, b2) if self.arch == "deepvoxels"
+                else make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2)
+            ),
             opt_dis=make_optimizer(dis.named_parameters(), a_d, b1, b2),
             ema_gen=ema,
         )
@@ -144,6 +172,8 @@ class Trainer:
 
     def _spec_for(self, iteration: int, stage_floor: int) -> StepSpec:
         c = self.config
+        if self.arch == "deepvoxels":
+            stage_floor = DEEPVOXELS_STAGE
         return StepSpec(
             stage_floor=stage_floor,
             batch_size=self.batch_size,
@@ -162,10 +192,19 @@ class Trainer:
 
     def _step(self, spec: StepSpec) -> Callable:
         if spec not in self._step_cache:
-            self._step_cache[spec] = make_rgbd_train_step(self.make_hidden, self.prior, spec)
+            if self.arch == "deepvoxels":
+                gamma = self.config.focal_loss_gamma
+                step = make_deepvoxels_train_step(
+                    self.make_hidden, self.prior, spec, focal_loss_gamma=gamma if gamma else 0.0
+                )
+            else:
+                step = make_rgbd_train_step(self.make_hidden, self.prior, spec)
+            self._step_cache[spec] = step
         return self._step_cache[spec]
 
     def stage(self, iteration: Optional[int] = None) -> float:
+        if self.arch == "deepvoxels":
+            return 8.5  # pinned (updater_deepvoxels.py:105-106)
         it = self.state.iteration if iteration is None else iteration
         return stage_at(it, self.stage_interval, self.max_stage)
 

@@ -36,6 +36,13 @@ def _imports(tree):
 
 def test_sources_found():
     assert len(SOURCES) > 20
+    found = {str(p.relative_to(ROOT)) for p in SOURCES}
+    # the DeepVoxels path's modules are among what is checked
+    assert {
+        "rgbd_gan_tpu_torch/ops/_build.py", "rgbd_gan_tpu_torch/ops/trilinear.py",
+        "rgbd_gan_tpu_torch/models/deepvoxels.py", "rgbd_gan_tpu_torch/models/extras.py",
+        "rgbd_gan_tpu_torch/train/steps_deepvoxels.py",
+    } <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
