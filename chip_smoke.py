@@ -3,8 +3,8 @@
 Phases, each printing one line; any failure exits non-zero:
 
 1. device: CUDA, triton/yaml availability, nvcc, card name and power limit;
-   builds the bilinear-gather and trilinear-lift kernels from
-   `rgbd_gan_tpu_torch/csrc/`.
+   builds the bilinear-gather, trilinear-lift and 3x3-conv kernels from
+   `rgbd_gan_tpu_torch/csrc/`, one nvcc for each source, all at once.
 2. bilinear kernel parity at the StyleGAN step's shapes (B=32, H=W=128, C=4,
    N=16384) and at the DeepVoxels step's (B=10, H=W=64, N=4096), exact True
    and False: K1 (forward) and K2 (backward) against the plain PyTorch
@@ -14,23 +14,29 @@ Phases, each printing one line; any failure exits non-zero:
    K4 and the windowed pair K5, float32 and bf16 operands, against the plain
    PyTorch version, with both times; `F.grid_sample` timed beside K3 and its
    backward (`aten.grid_sampler_3d_backward`) beside K4.
-4. one StyleGAN train step at a small width (ch 32, batch 4, 32 px, rotate
+4. K6, the fused 3x3 conv + bias + leaky ReLU, on its path: the measuring
+   function of `rgbd_gan_tpu_torch.tools.bench_conv` at its five shapes in
+   float32 and bfloat16, holding the kernel against the plain PyTorch
+   version, with its time, the plain version's, cuDNN conv + leaky ReLU's
+   and the bound.
+5. one StyleGAN train step at a small width (ch 32, batch 4, 32 px, rotate
    and occlusion on) from the same weights and draws, on the CPU with the
    plain gather and on the card with the kernels; the losses must agree.
-5. the same for one DeepVoxels step (ch 32, batch 2, both occlusion nets).
-6. the StyleGAN main path: the port's trainer at full width (ch 256, batch
+6. the same for one DeepVoxels step (ch 32, batch 2, both occlusion nets).
+7. the StyleGAN main path: the port's trainer at full width (ch 256, batch
    32, 128 px, the ffhq_stylegan_occlusion values) for 5 iterations through
    the CLI's run function, with a snapshot at the end; losses finite, and
    each bilinear kernel launched once per iteration.
-7. the DeepVoxels main path: the deepvoxels_shapenet_car values (ch 256,
+8. the DeepVoxels main path: the deepvoxels_shapenet_car values (ch 256,
    batch 10, 64 px, accumulative, focal gamma 2) for 5 iterations the same
    way; the windowed lift launched twice forward and once backward per
    iteration, the bilinear kernels once each.
-8. the same configuration with `lift_mode: pallas_f32` for 2 iterations, so
+9. the same configuration with `lift_mode: pallas_f32` for 2 iterations, so
    that the full-width lift kernels run on a path too.
 
-Each path is driven with every kernel's launch count set to 0 just before it
-and read just after. The line before the last is a JSON object describing
+Each path (the benchmark of phase 4 and the three runs of phases 7-9) is
+driven with every kernel's launch count set to 0 just before it and read
+just after. The line before the last is a JSON object describing
 each kernel (its time beside its bound, the plain version's time and, where
 one exists, a single PyTorch call's); the last is
 `{"ok": true, "device": {...}}`. There is no CPU path: without a card the
@@ -48,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -100,6 +107,11 @@ LIFT_BF16_RTOL, LIFT_BF16_ATOL = 2.0**-7, 1e-5  # at most one bf16 ulp where a s
 LIFT_DV_RTOL, LIFT_DV_ATOL = 1e-5, 1e-4  # atomics reorder the sums
 GRID_SAMPLE_ATOL = 1e-4  # another formula for the same weights
 GRID_SAMPLE_DV_RTOL, GRID_SAMPLE_DV_ATOL = 1e-4, 2e-4  # the same, summed over a corner's cells
+# K6 against its plain version: largest absolute error over max|y| in float32
+# (the taps' products summed in another order); in bfloat16 one bf16 ulp of
+# the larger value plus that float32 allowance, taken before the one rounding
+CONV_F32_REL = 1e-4
+CONV_REPS = 10
 # The DeepVoxels D phase renders through the generator *after* Adam's first
 # step, which moves every element by alpha times the sign of its gradient:
 # float32 noise in the elements whose gradient all but cancels (biases in
@@ -110,6 +122,20 @@ GRID_SAMPLE_DV_RTOL, GRID_SAMPLE_DV_ATOL = 1e-4, 2e-4  # the same, summed over a
 # with the softmax net.
 DIS_AFTER_UPDATE_ATOL = 2e-2
 MAX_SHARE_APART = 0.01
+
+
+def _reset_launches() -> None:
+    from rgbd_gan_tpu_torch.ops import bilinear, conv, trilinear
+
+    bilinear.launches.update(fwd=0, bwd=0)
+    trilinear.reset_launches()
+    conv.reset_launches()
+
+
+def _read_launches() -> dict:
+    from rgbd_gan_tpu_torch.ops import bilinear, conv, trilinear
+
+    return {"bilinear": dict(bilinear.launches), "trilinear": dict(trilinear.launches), "conv": dict(conv.launches)}
 
 
 def log(phase: str, **fields) -> None:
@@ -136,13 +162,15 @@ def phase_device(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    from rgbd_gan_tpu_torch.ops import bilinear, trilinear
+    from rgbd_gan_tpu_torch.ops import bilinear, conv, trilinear
 
-    built = {}
-    for module in (bilinear, trilinear):
+    def build(module):
         t0 = time.perf_counter()
         lib = module.build()
-        built[lib.name] = f"{time.perf_counter() - t0:.2f}"
+        return lib.name, f"{time.perf_counter() - t0:.2f}"
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        built = dict(pool.map(build, (bilinear, trilinear, conv)))
     log(
         "device", torch=torch.__version__, cuda=torch.version.cuda, triton=has_triton, yaml=has_yaml,
         nvcc=repr(nvcc_version.strip().splitlines()[-1] if nvcc_version else "missing"),
@@ -372,6 +400,37 @@ def phase_lift_kernels(torch):
     return errs, times, bounds
 
 
+def phase_conv(torch):
+    """K6 on its path: the benchmark tool's measuring function, with every
+    launch count zeroed just before and read just after. Its times are CUDA
+    event times of back-to-back calls (the tool's own), not the profiler's
+    kernel sums: every call here takes 0.08 ms or more on the card, and the
+    profiler's sum has undercounted a K6 call (0.51 ms where events read
+    1.18 ms, a rate above the f32 peak)."""
+    from rgbd_gan_tpu_torch.tools import bench_conv
+
+    _reset_launches()
+    records = bench_conv.measure(reps=CONV_REPS)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    failed = []
+    for r in records:
+        allowed = CONV_F32_REL * r["max_abs_y"]
+        err = r["max_abs_err"] if r["dtype"] == "float32" else r["max_excess_over_one_bf16_ulp"]
+        log("conv", **{k: (json.dumps(v) if isinstance(v, list) else v) for k, v in r.items()}, allowed=allowed)
+        if not err <= allowed:
+            failed.append((r["dtype"], r["shape"], err, allowed))
+    log("conv_path", launches=json.dumps(launches), kernel_calls=sum(r["kernel_calls"] for r in records))
+    if failed:
+        raise AssertionError(f"K6 parity failed: {failed}")
+    n = launches["conv"]["conv3x3"]
+    if n == 0 or n != sum(r["kernel_calls"] for r in records):
+        raise AssertionError(f"K6 path: {n} launches for {sum(r['kernel_calls'] for r in records)} calls")
+    if any(launches["bilinear"].values()) or any(launches["trilinear"].values()):
+        raise AssertionError(f"K6 path launched other kernels: {launches}")
+    return records, n
+
+
 def _small_config():
     from rgbd_gan_tpu_torch.core.config import Config
 
@@ -464,11 +523,11 @@ def phase_deepvoxels_step_parity(torch):
 def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name: str):
     """Run ``values`` through the CLI's run function on 64 synthetic images
     with every kernel's launch count zeroed just before and read just after;
-    returns the launch counts of the bilinear and the trilinear kernels."""
+    returns the launch counts of the bilinear and the trilinear kernels
+    (K6, wired into no model, must not launch)."""
     from rgbd_gan_tpu_torch.cli import train as cli
     from rgbd_gan_tpu_torch.core.config import Config
     from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
-    from rgbd_gan_tpu_torch.ops import bilinear, trilinear
 
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -496,12 +555,11 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
             route = "config-in-code"
         config.gpu = 0
         torch.cuda.reset_peak_memory_stats()
-        bilinear.launches.update(fwd=0, bwd=0)
-        trilinear.reset_launches()
+        _reset_launches()
         trainer = cli.run(config, on_row=on_row)
         torch.cuda.synchronize()
-        launches = dict(bilinear.launches)
-        lift_launches = dict(trilinear.launches)
+        counts = _read_launches()
+        launches, lift_launches = counts["bilinear"], counts["trilinear"]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
         rows = [r for _, _, r in stamps]
@@ -525,6 +583,8 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
             raise AssertionError(f"{phase}: expected {iterations} iterations with finite losses")
         if launches != {"fwd": iterations, "bwd": iterations}:
             raise AssertionError(f"{phase}: bilinear kernel launches {launches} != {iterations} each")
+        if counts["conv"]["conv3x3"]:
+            raise AssertionError(f"{phase}: K6 is wired into no model, yet launched {counts['conv']}")
         if "Generator_latest.npz" not in out_files or "Discriminator_latest.npz" not in out_files:
             raise AssertionError(f"{phase}: snapshot missing")
         return launches, lift_launches, out_files
@@ -577,6 +637,7 @@ def main() -> int:
     bilinear_parity = {path: phase_kernels(torch, path) for path in BILINEAR_SHAPES}
     errs, times, bounds = bilinear_parity["stylegan"]
     lift_errs, lift_times, lift_bounds = phase_lift_kernels(torch)
+    conv_records, conv_launches = phase_conv(torch)
     phase_step_parity(torch)
     phase_deepvoxels_step_parity(torch)
     by_path = {"stylegan": phase_main_path(torch, has_yaml)}
@@ -610,6 +671,17 @@ def main() -> int:
             lift_times[key], lift_times[key + "_plain"], lift_bounds[key],
             lift_times["library_" + key[:3]],
         ))
+    # K6 on its path (the benchmark): the top-level numbers are those of
+    # float32 at the first shape, every (dtype, shape) stands beside them
+    first = conv_records[0]
+    kernels.append(dict(
+        entry("conv3x3_bias_lrelu", "rgbd_gan_tpu_torch/csrc/conv3x3.cu", pallas % ("conv", 37), conv_launches,
+              first["max_abs_err"], first["ms"], first["plain_ms"], first, first["library_ms"]),
+        by_dtype_and_shape=[{k: r[k] for k in (
+            "dtype", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "peak", "max_abs_err",
+            "max_abs_y", "rel_err_plain", "rel_err_library", "kernel_tflops", "library_tflops",
+        )} for r in conv_records],
+    ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

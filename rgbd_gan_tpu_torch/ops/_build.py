@@ -21,7 +21,8 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -35,9 +36,12 @@ def load_library(name: str) -> ctypes.CDLL:
 
     The library is written under a temporary name and renamed into place, so
     a concurrent or interrupted build never leaves a half-written file
-    under the final name.
+    under the final name. Each source has its own lock, so that several
+    sources build at once from several threads.
     """
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src_path = CSRC_DIR / f"{name}.cu"

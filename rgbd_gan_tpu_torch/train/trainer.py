@@ -115,7 +115,9 @@ class Trainer:
     """Owns the train state and runs the iteration loop.
 
     Weights are drawn on the CPU from ``seed`` and then moved to ``device``,
-    so the same seed gives the same initial weights on every device.
+    so the same seed gives the same initial weights on every device. The
+    device is the card unless the caller asks for the CPU; without a card a
+    ``"cuda"`` device raises.
     """
 
     def __init__(
@@ -123,13 +125,15 @@ class Trainer:
         config,
         dataset: Optional[np.ndarray] = None,
         seed: int = 0,
-        device: Optional[torch.device | str] = None,
+        device: torch.device | str = "cuda",
     ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
         _check_config(config)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
         self.stage_interval = parse_stage_interval(config.stage_interval)
         self.max_stage = config.max_stage
         self.prior = CameraParamPrior(config)

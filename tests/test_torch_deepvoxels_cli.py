@@ -56,14 +56,14 @@ def _tiny_yml(scratch, **overrides):
 def test_cli_runs_snapshots_and_resumes(scratch):
     path = _tiny_yml(scratch, auto_resume=True)
     rows = []
-    trainer = cli.run(cli.load_config(path), on_row=rows.append)
+    trainer = cli.run(cli.load_config(path), on_row=rows.append, device="cpu")
     assert trainer.state.iteration == 1 and [r["iteration"] for r in rows] == [1]
     assert all(np.isfinite(rows[0][k]) for k in METRICS) and rows[0]["stage"] == 8.5
     files = set(os.listdir(scratch / "out"))
     assert {"Generator_1.npz", "Map_1.npz", "Discriminator_1.npz", "snapshot_iter_1.npz",
             "Generator_latest.npz", "Map_latest.npz", "log.jsonl"} <= files
 
-    resumed = cli.main(["--config_path", path, "--iterations", "2"])
+    resumed = cli.main(["--config_path", path, "--iterations", "2", "--device", "cpu"])
     assert resumed.state.iteration == 2
     assert len((scratch / "out" / "log.jsonl").read_text().splitlines()) == 2
 
@@ -71,7 +71,7 @@ def test_cli_runs_snapshots_and_resumes(scratch):
 def test_cli_runs_the_softmax_occlusion_net(scratch):
     """One iteration with BatchNorm statistics; only the final snapshot is written."""
     path = _tiny_yml(scratch, occlusion_type="deepvoxels", snapshot_interval=100)
-    trainer = cli.main(["--config_path", path])
+    trainer = cli.main(["--config_path", path, "--device", "cpu"])
     stats = {k: v for k, v in trainer.state.gen.state_dict().items() if k.endswith((".mean", ".var"))}
     assert trainer.state.iteration == 1 and len(stats) == 4
     assert all(float(v.abs().sum()) > 0 and not bool((v == 1).all()) for v in stats.values())  # both forwards moved them

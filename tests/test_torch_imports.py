@@ -37,11 +37,12 @@ def _imports(tree):
 def test_sources_found():
     assert len(SOURCES) > 20
     found = {str(p.relative_to(ROOT)) for p in SOURCES}
-    # the DeepVoxels path's modules are among what is checked
+    # the DeepVoxels path's modules and K6's are among what is checked
     assert {
         "rgbd_gan_tpu_torch/ops/_build.py", "rgbd_gan_tpu_torch/ops/trilinear.py",
         "rgbd_gan_tpu_torch/models/deepvoxels.py", "rgbd_gan_tpu_torch/models/extras.py",
-        "rgbd_gan_tpu_torch/train/steps_deepvoxels.py",
+        "rgbd_gan_tpu_torch/train/steps_deepvoxels.py", "rgbd_gan_tpu_torch/ops/conv.py",
+        "rgbd_gan_tpu_torch/tools/bench_conv.py",
     } <= found
 
 

@@ -1,6 +1,7 @@
-"""The CUDA kernels K1/K2 of ``rgbd_gan_tpu_torch.ops.bilinear`` and K3/K4/K5
-of ``rgbd_gan_tpu_torch.ops.trilinear`` against their plain PyTorch versions,
-on the card. Without a GPU every test here skips.
+"""The CUDA kernels K1/K2 of ``rgbd_gan_tpu_torch.ops.bilinear``, K3/K4/K5
+of ``rgbd_gan_tpu_torch.ops.trilinear`` and K6 of ``rgbd_gan_tpu_torch.ops.conv``
+against their plain PyTorch versions, on the card. Without a GPU every test
+here skips.
 
 This file imports no JAX, so it also runs on a machine without it:
 ``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
@@ -9,7 +10,10 @@ Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
 d img, whose f32 atomics add in an order that changes from run to run. The
 lift: rtol/atol 1e-5 on the float32 forward (fused multiply-adds against
 separate ones), one bf16 ulp (rtol 2^-7) on the bf16 forward, and rtol 1e-5 /
-atol 1e-4 on dV (atomics again).
+atol 1e-4 on dV (atomics again). K6: largest absolute error 1e-4 x max|y|
+in float32 (the taps' products summed in another order); in bfloat16 one
+bf16 ulp of the larger value plus that float32 allowance, taken before the
+one rounding.
 """
 
 import numpy as np
@@ -24,9 +28,11 @@ from rgbd_gan_tpu_torch.models.deepvoxels import (
     frustum_voxel_coords,
     lift_frustum,
 )
-from rgbd_gan_tpu_torch.ops import bilinear, trilinear
+from rgbd_gan_tpu_torch.ops import bilinear, conv, trilinear
+from rgbd_gan_tpu_torch.tools.bench_conv import bf16_ulp
 
 ATOL = 1e-5
+CONV_REL = 1e-4  # K6 against its plain version, relative to max|y|
 pytestmark = pytest.mark.cuda
 
 
@@ -257,3 +263,54 @@ def test_lift_wrapper_refuses_what_the_kernels_do_not_take(cuda):
         trilinear.trilinear_lift(voxel, coords.cpu(), mask)
     with pytest.raises(ValueError):
         trilinear.trilinear_lift(voxel, coords[:, :2], mask)
+
+
+def _conv_inputs(shape, dtype, seed, device):
+    b, h, w, cin, cout = shape
+    rng = np.random.RandomState(seed)
+    arrays = (rng.randn(b, h, w, cin), rng.randn(3, 3, cin, cout) * 0.05, rng.randn(cout) * 0.1)
+    return [torch.tensor(a.astype("f"), device=device).to(dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 8, 8, 3, 5),  # Cin 3, Cout 5: ragged chunk and channel tile, a W tile of 8 of 16
+    (2, 16, 20, 24, 72),  # W, Cin and Cout not multiples of the tiles
+    (32, 32, 32, 256, 256),  # the benchmark's last shape
+])
+def test_conv_kernel_matches_plain_version(cuda, shape, dtype):
+    x, k, bias = _conv_inputs(shape, dtype, seed=sum(shape), device=cuda)
+    before = conv.launches["conv3x3"]
+    got = conv.conv3x3_bias_lrelu(x, k, bias)
+    torch.cuda.synchronize()
+    assert conv.launches["conv3x3"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (shape[4],)
+    want = conv.conv3x3_bias_lrelu_reference(x, k, bias)
+    got, want = got.float(), want.float()
+    diff, allowed = (got - want).abs(), CONV_REL * want.abs().max()
+    if dtype == torch.bfloat16:
+        allowed = allowed + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    assert bool((diff <= allowed).all()), float((diff - allowed).max())
+
+
+def test_conv_kernel_takes_strided_inputs(cuda):
+    x, k, bias = _conv_inputs((2, 8, 12, 16, 8), torch.float32, seed=20, device=cuda)
+    x_strided = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)  # the same values, other strides
+    torch.testing.assert_close(conv.conv3x3_bias_lrelu(x_strided, k, bias), conv.conv3x3_bias_lrelu(x, k, bias),
+                               rtol=0, atol=0)
+
+
+def test_conv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, k, bias = _conv_inputs((1, 8, 8, 3, 4), torch.float32, seed=21, device=cuda)
+    before = conv.launches["conv3x3"]
+    with pytest.raises(ValueError, match="TILE_H"):
+        conv.conv3x3_bias_lrelu(torch.zeros(1, 12, 8, 3, device=cuda), k, bias)
+    with pytest.raises(ValueError, match="forward only"):
+        conv.conv3x3_bias_lrelu(x.clone().requires_grad_(True), k, bias)
+    with pytest.raises(ValueError, match="one device"):
+        conv.conv3x3_bias_lrelu(x, k.cpu(), bias)
+    with pytest.raises(TypeError):
+        conv.conv3x3_bias_lrelu(x.half(), k.half(), bias.half())
+    with pytest.raises(TypeError):
+        conv.conv3x3_bias_lrelu(x, k.to(torch.bfloat16), bias)
+    assert conv.launches["conv3x3"] == before

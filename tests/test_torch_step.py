@@ -211,7 +211,7 @@ def test_cli_runs_snapshots_and_resumes(tmp_path):
     path = tmp_path / "tiny.yml"
     path.write_text(yaml.safe_dump(cfg))
     rows = []
-    trainer = cli.run(cli.load_config(str(path)), on_row=rows.append)
+    trainer = cli.run(cli.load_config(str(path)), on_row=rows.append, device="cpu")
     assert trainer.state.iteration == 2 and [r["iteration"] for r in rows] == [1, 2]
     for r in rows:
         assert all(np.isfinite(r[k]) for k in METRICS)
@@ -219,7 +219,7 @@ def test_cli_runs_snapshots_and_resumes(tmp_path):
     assert {"Generator_2.npz", "Discriminator_2.npz", "SmoothedGenerator_2.npz",
             "snapshot_iter_2.npz", "Generator_latest.npz", "log.jsonl"} <= files
 
-    resumed = cli.main(["--config_path", str(path), "--iterations", "3"])
+    resumed = cli.main(["--config_path", str(path), "--iterations", "3", "--device", "cpu"])
     assert resumed.state.iteration == 3
     assert len((tmp_path / "out" / "log.jsonl").read_text().splitlines()) == 3
 
@@ -235,6 +235,23 @@ def test_step_refuses_unported_options(option):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        Trainer(Config(dict(CFG, sn=True)), dataset=synthetic_dataset(4, 32))
+        Trainer(Config(dict(CFG, sn=True)), dataset=synthetic_dataset(4, 32), device="cpu")
     with pytest.raises(NotImplementedError):
-        Trainer(Config(dict(CFG, step_window=4)), dataset=synthetic_dataset(4, 32))
+        Trainer(Config(dict(CFG, step_window=4)), dataset=synthetic_dataset(4, 32), device="cpu")
+
+
+def test_trainer_without_a_device_needs_a_card():
+    """The card is the default device: without one the Trainer raises and
+    does not move to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(Config(CFG), dataset=synthetic_dataset(4, 32))
+
+
+def test_cli_without_device_cpu_exits_nonzero():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(SystemExit) as info:
+        cli.main(["--config_path", "configs/ffhq_stylegan_occlusion.yml"])
+    assert info.value.code not in (0, None) and "--device cpu" in str(info.value.code)
