@@ -3,8 +3,11 @@
 Phases, each printing one line; any failure exits non-zero:
 
 1. device: CUDA, triton/yaml availability, nvcc, card name and power limit;
-   builds the bilinear-gather, trilinear-lift and 3x3-conv kernels from
-   `rgbd_gan_tpu_torch/csrc/`, one nvcc for each source, all at once.
+   builds the bilinear-gather, trilinear-lift and the two 3x3-conv kernel
+   sources from `rgbd_gan_tpu_torch/csrc/`, one nvcc for each source, all at
+   once; prints ptxas's registers, shared memory and spills of the
+   tensor-core conv and the vectorised lift forward, and fails unless the
+   tensor-core conv's SASS holds HGMMA (Hopper's warpgroup MMA).
 2. bilinear kernel parity at the StyleGAN step's shapes (B=32, H=W=128, C=4,
    N=16384) and at the DeepVoxels step's (B=10, H=W=64, N=4096), exact True
    and False: K1 (forward) and K2 (backward) against the plain PyTorch
@@ -13,12 +16,18 @@ Phases, each printing one line; any failure exits non-zero:
    C=32, N=56*64*64 frustum cells under cameras from the yml's prior): K3,
    K4 and the windowed pair K5, float32 and bf16 operands, against the plain
    PyTorch version, with both times; `F.grid_sample` timed beside K3 and its
-   backward (`aten.grid_sampler_3d_backward`) beside K4.
+   backward (`aten.grid_sampler_3d_backward`) beside K4. On the main paths'
+   pairs (f32 full, bf16 windowed) the forward's three routes in turns: the
+   thread-per-(cell, channel) kernel, the vectorised one, and the vectorised
+   one with neighbouring threads on neighbouring cells.
 4. K6, the fused 3x3 conv + bias + leaky ReLU, on its path: the measuring
    function of `rgbd_gan_tpu_torch.tools.bench_conv` at its five shapes in
    float32 and bfloat16, holding the kernel against the plain PyTorch
    version, with its time, the plain version's, cuDNN conv + leaky ReLU's
-   and the bound.
+   and the bound; every bfloat16 call must have launched the tensor-core
+   kernel and every float32 call the FMA kernel. Then, outside the path's
+   count, the FMA kernel and the tensor-core kernel in bfloat16 in turns at
+   every shape.
 5. one StyleGAN train step at a small width (ch 32, batch 4, 32 px, rotate
    and occlusion on) from the same weights and draws, on the CPU with the
    plain gather and on the card with the kernels; the losses must agree.
@@ -38,7 +47,8 @@ Each path (the benchmark of phase 4 and the three runs of phases 7-9) is
 driven with every kernel's launch count set to 0 just before it and read
 just after. The line before the last is a JSON object describing
 each kernel (its time beside its bound, the plain version's time and, where
-one exists, a single PyTorch call's); the last is
+one exists, a single PyTorch call's; K6's two kernels, FMA and tensor
+cores, one entry each); the last is
 `{"ok": true, "device": {...}}`. There is no CPU path: without a card the
 script exits with an error.
 """
@@ -95,6 +105,11 @@ BILINEAR_SHAPES = {
     "deepvoxels": dict(B=10, H=64, W=64, C=4, N=64 * 64),
 }
 LIFT_SHAPE = dict(B=10, G=32, C=32, N=56 * 64 * 64)
+# the lift's launch counts with nothing launched
+LIFT_NONE = {"fwd": 0, "fwd_vec4": 0, "bwd": 0, "fwd_win": 0, "fwd_win_vec4": 0, "bwd_win": 0}
+# the kernel sources of `rgbd_gan_tpu_torch/csrc/`, one nvcc each, all at once
+SOURCES = ("bilinear", "trilinear", "conv3x3", "conv3x3_tc")
+NEW_KERNELS = ("conv3x3_tc_kernel", "lift_fwd_vec4_kernel")  # ptxas figures printed for these
 # published peaks of one H100 SXM: HBM bytes/s and f32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -155,36 +170,85 @@ def phase_device(torch):
         has_yaml = True
     except ImportError:
         has_yaml = False
-    from rgbd_gan_tpu_torch.ops._build import nvcc_path
+    from rgbd_gan_tpu_torch.ops._build import load_library, nvcc_path, ptxas_report
 
     nvcc_version = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True).stdout
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    from rgbd_gan_tpu_torch.ops import bilinear, conv, trilinear
 
-    def build(module):
+    def build(name):
         t0 = time.perf_counter()
-        lib = module.build()
-        return lib.name, f"{time.perf_counter() - t0:.2f}"
+        lib = load_library(name)
+        return name, (lib._name, f"{time.perf_counter() - t0:.2f}")
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        built = dict(pool.map(build, (bilinear, trilinear, conv)))
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        built = dict(pool.map(build, SOURCES))
     log(
         "device", torch=torch.__version__, cuda=torch.version.cuda, triton=has_triton, yaml=has_yaml,
         nvcc=repr(nvcc_version.strip().splitlines()[-1] if nvcc_version else "missing"),
-        build_s=json.dumps(built),
+        build_s=json.dumps({name: os.path.basename(so) + " " + sec for name, (so, sec) in built.items()}),
     )
+    # registers, shared memory and spills of this PR's kernels, from ptxas
+    report = {}
+    for name, (so, _) in built.items():
+        report.update({k: v for k, v in _ptxas_figures(ptxas_report(so)).items() if k.startswith(NEW_KERNELS)})
+    log("ptxas", kernels=json.dumps(report))
+    # the tensor-core kernel really runs on the tensor cores: Hopper's warpgroup MMA in its SASS
+    hgmma = _count_in_sass(built["conv3x3_tc"][0], "HGMMA")
+    log("sass", conv3x3_tc_HGMMA=hgmma, conv3x3_HGMMA=_count_in_sass(built["conv3x3"][0], "HGMMA"))
+    if hgmma == 0:
+        raise AssertionError("conv3x3_tc.cu has no HGMMA instruction")
     print(smi, flush=True)
     return has_yaml
 
 
-def _time_ms(torch, fn, reps: int = 20):
+def _ptxas_figures(text: str) -> dict:
+    """{kernel: {registers, smem_bytes, spill_stores, spill_loads}} from
+    ``nvcc -Xptxas -v``'s report, kernel names demangled."""
+    import re
+
+    figures, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _demangle(m.group(1))
+            figures[name] = {}
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            figures[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            figures[name].update(registers=int(regs.group(1)), smem_bytes=int(smem.group(1)) if smem else 0)
+    return figures
+
+
+def _demangle(symbol: str) -> str:
+    res = subprocess.run(["c++filt", symbol], capture_output=True, text=True)
+    name = res.stdout.strip() if res.returncode == 0 and res.stdout.strip() else symbol
+    return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+
+
+def _count_in_sass(so: str, opcode: str) -> int:
+    from rgbd_gan_tpu_torch.ops._build import nvcc_path
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {so}: {res.stderr}")
+    return sum(opcode in line for line in res.stdout.splitlines())
+
+
+def _time_ms(torch, fn, reps: int = 20, attempts: int = 3):
     """(device ms, wall ms) per call. Device time is the sum of the CUDA
-    kernels the call launches, from the profiler (None if it records no
-    device time); wall time is between CUDA events around back-to-back calls,
-    so it includes the host's launch overhead where that exceeds the kernels."""
+    kernels the call launches, from the profiler; a profile whose kernel
+    records are not a whole multiple of ``reps`` lost some (one summed about
+    2 of 5 calls' kernels) and is taken again, up to ``attempts`` times, then None,
+    as when it records no device time. Wall time is between CUDA events
+    around back-to-back calls, so it includes the host's launch overhead
+    where that exceeds the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -196,13 +260,16 @@ def _time_ms(torch, fn, reps: int = 20):
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.device_time for e in kernels)
-    return (device_us / 1e3 / reps if device_us > 0 else None), wall
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.device_time for e in kernels)
+        if kernels and len(kernels) % reps == 0 and device_us > 0:
+            return device_us / 1e3 / reps, wall
+    return None, wall
 
 
 def phase_kernels(torch, path: str):
@@ -361,6 +428,26 @@ def phase_lift_kernels(torch):
                     times[k + suffix + "_plain"] = pdev if pdev is not None else pwall
                 errs["fwd" + suffix], errs["bwd" + suffix] = e_fwd, e_bwd
 
+    # the forward's two kernels on the main paths' pairs, in turns on this
+    # card: the thread-per-(cell, channel) kernel (the forward before the
+    # vectorised one) and the vectorised kernel
+    for window, dtype in ((None, torch.float32), (LIFT_WINDOW, torch.bfloat16)):
+        outs = {r: trilinear._fwd(voxel, vox, in_bounds, dtype, window, route=r) for r in ("generic", "vec4")}
+        torch.cuda.synchronize()
+        diffs = {"generic_max_abs_diff_to_vec4": (outs["generic"] - outs["vec4"]).abs().max().item()}
+        del outs
+        order = ("generic", "vec4", "vec4", "generic")
+        turns = [(r, _time_ms(torch, lambda r=r: trilinear._fwd(voxel, vox, in_bounds, dtype, window, route=r),
+                              reps=5)) for r in order]
+        ms = {r: statistics.mean(dev if dev is not None else wall for r_, (dev, wall) in turns if r_ == r)
+              for r in set(order)}
+        suffix = "" if window is None else "_win"
+        times["fwd" + suffix + "_generic"] = ms["generic"]
+        log("lift_fwd_routes", window=window, operands="f32" if dtype == torch.float32 else "bf16",
+            chosen=trilinear.fwd_route(c, voxel.data_ptr()), **{f"{r}_ms": f"{ms[r]:.4f}" for r in sorted(ms)},
+            turns_ms=json.dumps([round(dev if dev is not None else wall, 4) for _, (dev, wall) in turns]),
+            generic_over_vec4=f"{ms['generic'] / ms['vec4']:.3f}", **{k: f"{v:.3e}" for k, v in diffs.items()})
+
     # one PyTorch call for the same sample (valid cells): a yardstick, used nowhere in the port
     vol = voxel.permute(0, 4, 1, 2, 3).contiguous()
     grid = (vox.transpose(1, 2) * (2.0 / (g - 1)) - 1.0).reshape(b, 1, 1, n, 3).contiguous()
@@ -413,22 +500,45 @@ def phase_conv(torch):
     records = bench_conv.measure(reps=CONV_REPS)
     torch.cuda.synchronize()
     launches = _read_launches()
-    failed = []
+    failed, misrouted = [], []
     for r in records:
         allowed = CONV_F32_REL * r["max_abs_y"]
         err = r["max_abs_err"] if r["dtype"] == "float32" else r["max_excess_over_one_bf16_ulp"]
-        log("conv", **{k: (json.dumps(v) if isinstance(v, list) else v) for k, v in r.items()}, allowed=allowed)
+        log("conv", **{k: (json.dumps(v) if isinstance(v, (list, dict)) else v) for k, v in r.items()},
+            allowed=allowed)
         if not err <= allowed:
             failed.append((r["dtype"], r["shape"], err, allowed))
-    log("conv_path", launches=json.dumps(launches), kernel_calls=sum(r["kernel_calls"] for r in records))
+        # every bf16 call on the tensor cores, every f32 call on the FMA kernel
+        key = "conv3x3_tc" if r["dtype"] == "bfloat16" else "conv3x3"
+        if r["launches"] != {**{k: 0 for k in r["launches"]}, key: r["kernel_calls"]}:
+            misrouted.append((r["dtype"], r["shape"], r["launches"]))
+    calls = sum(r["kernel_calls"] for r in records)
+    log("conv_path", launches=json.dumps(launches), kernel_calls=calls)
     if failed:
         raise AssertionError(f"K6 parity failed: {failed}")
-    n = launches["conv"]["conv3x3"]
-    if n == 0 or n != sum(r["kernel_calls"] for r in records):
-        raise AssertionError(f"K6 path: {n} launches for {sum(r['kernel_calls'] for r in records)} calls")
+    if misrouted:
+        raise AssertionError(f"K6 calls on the wrong kernel: {misrouted}")
+    n = launches["conv"]
+    if 0 in n.values() or sum(n.values()) != calls:
+        raise AssertionError(f"K6 path: {n} launches for {calls} calls")
     if any(launches["bilinear"].values()) or any(launches["trilinear"].values()):
         raise AssertionError(f"K6 path launched other kernels: {launches}")
-    return records, n
+    # the FMA kernel (bf16's route before the tensor-core kernel) against the
+    # tensor-core kernel, in turns on this card; outside the path's count
+    # Both are held to the bf16 check above: the FMA kernel's bf16 instance
+    # still takes the calls the tensor-core kernel cannot.
+    compared = bench_conv.compare_fma_and_tc(reps=CONV_REPS)
+    for r in compared:
+        allowed = CONV_F32_REL * r["max_abs_y"]
+        log("conv_fma_vs_tc", **{k: (json.dumps(v) if isinstance(v, list) else v) for k, v in r.items()},
+            allowed=allowed)
+        for which in ("fma", "tc"):
+            err = r[f"{which}_max_excess_over_one_bf16_ulp"]
+            if not err <= allowed:
+                failed.append(("bfloat16", which, r["shape"], err, allowed))
+    if failed:
+        raise AssertionError(f"K6 parity failed in the in-turn comparison: {failed}")
+    return records, n, compared
 
 
 def _small_config():
@@ -516,7 +626,7 @@ def phase_deepvoxels_step_parity(torch):
             dis_after_update_atol=DIS_AFTER_UPDATE_ATOL)
         if apart > MAX_SHARE_APART:
             raise AssertionError(f"deepvoxels step parity: {apart:.4f} of the generator's elements ended apart")
-        if trilinear.launches != {"fwd": 0, "bwd": 0, "fwd_win": 2, "bwd_win": 1}:
+        if trilinear.launches != {**LIFT_NONE, "fwd_win_vec4": 2, "bwd_win": 1}:
             raise AssertionError(f"deepvoxels step parity: lift launches {trilinear.launches}")
 
 
@@ -583,7 +693,7 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
             raise AssertionError(f"{phase}: expected {iterations} iterations with finite losses")
         if launches != {"fwd": iterations, "bwd": iterations}:
             raise AssertionError(f"{phase}: bilinear kernel launches {launches} != {iterations} each")
-        if counts["conv"]["conv3x3"]:
+        if any(counts["conv"].values()):
             raise AssertionError(f"{phase}: K6 is wired into no model, yet launched {counts['conv']}")
         if "Generator_latest.npz" not in out_files or "Discriminator_latest.npz" not in out_files:
             raise AssertionError(f"{phase}: snapshot missing")
@@ -605,17 +715,19 @@ def phase_deepvoxels_paths(torch, has_yaml: bool):
     2 iterations with ``lift_mode: pallas_f32`` (the full kernels)."""
     bil_win, win, files = _drive(
         torch, has_yaml, "main_path_deepvoxels", DEEPVOXELS_SHAPENET_CAR, 64, "deepvoxels_shapenet_car")
-    # per iteration: the G phase lifts forward and backward, the D phase forward only
-    if win != {"fwd": 0, "bwd": 0, "fwd_win": 10, "bwd_win": 5}:
+    # per iteration: the G phase lifts forward and backward, the D phase
+    # forward only; at C = 32 every forward on the vectorised kernel
+    if win != {**LIFT_NONE, "fwd_win_vec4": 10, "bwd_win": 5}:
         raise AssertionError(f"deepvoxels main path: lift launches {win}")
     if "Map_latest.npz" not in files:
         raise AssertionError("deepvoxels main path: Map_latest.npz missing")
     bil_full, full, _ = _drive(
         torch, has_yaml, "main_path_deepvoxels_f32", dict(DEEPVOXELS_SHAPENET_CAR, lift_mode="pallas_f32", iteration=2),
         64, "deepvoxels_shapenet_car_f32")
-    if full != {"fwd": 4, "bwd": 2, "fwd_win": 0, "bwd_win": 0}:
+    if full != {**LIFT_NONE, "fwd_vec4": 4, "bwd": 2}:
         raise AssertionError(f"deepvoxels pallas_f32 path: lift launches {full}")
-    lift = {**{k: win[k] for k in ("fwd_win", "bwd_win")}, **{k: full[k] for k in ("fwd", "bwd")}}
+    # the kernels that ran: the windowed pair on the yml's default, the full pair on pallas_f32
+    lift = {"fwd": full["fwd_vec4"], "bwd": full["bwd"], "fwd_win": win["fwd_win_vec4"], "bwd_win": win["bwd_win"]}
     return lift, bil_win, bil_full
 
 
@@ -637,7 +749,7 @@ def main() -> int:
     bilinear_parity = {path: phase_kernels(torch, path) for path in BILINEAR_SHAPES}
     errs, times, bounds = bilinear_parity["stylegan"]
     lift_errs, lift_times, lift_bounds = phase_lift_kernels(torch)
-    conv_records, conv_launches = phase_conv(torch)
+    conv_records, conv_launches, conv_compared = phase_conv(torch)
     phase_step_parity(torch)
     phase_deepvoxels_step_parity(torch)
     by_path = {"stylegan": phase_main_path(torch, has_yaml)}
@@ -666,22 +778,32 @@ def main() -> int:
                                   "bound_by": dv_bounds[key]["bound_by"]},
         ))
     for key, line in (("fwd", 110), ("bwd", 141), ("fwd_win", 210), ("bwd_win", 240)):
-        kernels.append(entry(
+        e = entry(
             "trilinear_lift_" + key, tri, pallas % ("trilinear", line), lift_launches[key], lift_errs[key],
             lift_times[key], lift_times[key + "_plain"], lift_bounds[key],
             lift_times["library_" + key[:3]],
-        ))
-    # K6 on its path (the benchmark): the top-level numbers are those of
-    # float32 at the first shape, every (dtype, shape) stands beside them
-    first = conv_records[0]
-    kernels.append(dict(
-        entry("conv3x3_bias_lrelu", "rgbd_gan_tpu_torch/csrc/conv3x3.cu", pallas % ("conv", 37), conv_launches,
-              first["max_abs_err"], first["ms"], first["plain_ms"], first, first["library_ms"]),
-        by_dtype_and_shape=[{k: r[k] for k in (
-            "dtype", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "peak", "max_abs_err",
-            "max_abs_y", "rel_err_plain", "rel_err_library", "kernel_tflops", "library_tflops",
-        )} for r in conv_records],
-    ))
+        )
+        if key.startswith("fwd"):  # the vectorised kernel ran; the forward before it, timed in turns
+            e.update(kernel="lift_fwd_vec4_kernel", generic_ms=lift_times[key + "_generic"])
+        kernels.append(e)
+    # K6 on its path (the benchmark), one entry per kernel: the FMA kernel
+    # with float32 at the first shape on top, the tensor-core kernel with
+    # bfloat16 at the first shape; every (dtype, shape) of each stands beside
+    fields = ("dtype", "shape", "route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "peak",
+              "max_abs_err", "max_abs_y", "rel_err_plain", "rel_err_library", "kernel_tflops", "library_tflops")
+    for name, source, route in (("conv3x3_bias_lrelu", "conv3x3.cu", "fma"),
+                                ("conv3x3_bias_lrelu_tc", "conv3x3_tc.cu", "tc")):
+        mine = [r for r in conv_records if r["route"] == route]
+        first = mine[0]
+        e = dict(
+            entry(name, "rgbd_gan_tpu_torch/csrc/" + source, pallas % ("conv", 37),
+                  conv_launches["conv3x3" if route == "fma" else "conv3x3_tc"], first["max_abs_err"],
+                  first["ms"], first["plain_ms"], first, first["library_ms"]),
+            by_dtype_and_shape=[{k: r[k] for k in fields} for r in mine],
+        )
+        if route == "tc":
+            e["fma_vs_tc_in_turns"] = conv_compared
+        kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

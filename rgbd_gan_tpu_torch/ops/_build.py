@@ -3,8 +3,11 @@
 Each kernel source has a plain C interface. It is compiled for ``sm_90a``
 at first use into ``build/`` at the repository root, under a name that
 carries the hash of the source, so an edited source is rebuilt and an
-unchanged one is reused. A failed build raises with ``nvcc``'s own error
-text; nothing falls back.
+unchanged one is reused. No source includes a header of its own, so the
+source's hash names everything that goes into its library. ``ptxas``'s
+report (registers, shared memory, spills of every kernel) is kept beside the
+library. A failed build raises with ``nvcc``'s own error text; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -52,14 +55,21 @@ def load_library(name: str) -> ctypes.CDLL:
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [
                 nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src_path),
+                "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src_path),
             ]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}) on {src_path.name}:\n{res.stderr}")
+            so.with_suffix(".ptxas.txt").write_text(res.stderr)
             os.replace(tmp, so)
         _libs[name] = ctypes.CDLL(str(so))
         return _libs[name]
+
+
+def ptxas_report(so: Path) -> str:
+    """``nvcc -Xptxas -v``'s report from the build of the library ``so``."""
+    report = Path(so).with_suffix(".ptxas.txt")
+    return report.read_text() if report.exists() else ""
 
 
 def raise_on(err: int, name: str) -> None:

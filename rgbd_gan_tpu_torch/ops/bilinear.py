@@ -20,7 +20,6 @@ gradient.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import Tuple
 
 import torch
@@ -140,11 +139,6 @@ def _library() -> ctypes.CDLL:
         lib.bilinear_gather_bwd.restype = i
         _lib = lib
     return _lib
-
-
-def build() -> Path:
-    """Build and load the kernels now; returns the shared library's path."""
-    return Path(_library()._name)
 
 
 def _check(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, g=None) -> None:

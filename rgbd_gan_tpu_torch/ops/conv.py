@@ -1,8 +1,13 @@
-"""Fused 3x3 convolution + bias + leaky ReLU (K6): CUDA kernel + plain twin.
+"""Fused 3x3 convolution + bias + leaky ReLU (K6): CUDA kernels + plain twin.
 
 Port of :mod:`rgbd_gan_tpu.ops.conv_pallas`. On a CUDA tensor
-:func:`conv3x3_bias_lrelu` runs the hand-written kernel in
-``csrc/conv3x3.cu``; on a CPU tensor it runs
+:func:`conv3x3_bias_lrelu` runs one of two hand-written kernels, chosen by
+:func:`route` from the dtype, the channel counts and the alignment of ``x``
+(never on a failure): bfloat16 with Cin and Cout multiples of 8 and a
+16-byte-aligned ``x`` goes to the tensor-core kernel in
+``csrc/conv3x3_tc.cu`` (``wgmma`` fed by TMA), everything else (float32,
+whose numbers TF32 would change, and the shapes TMA cannot address) to the
+FMA kernel in ``csrc/conv3x3.cu``. On a CPU tensor it runs
 :func:`conv3x3_bias_lrelu_reference`, the plain PyTorch version of the same
 function. A CUDA tensor never falls back to the plain version.
 
@@ -24,7 +29,7 @@ Pallas function, K6 is wired into no model: its path is the benchmark
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,14 +38,17 @@ from ._build import load_library, raise_on
 
 TILE_H = 8  # output rows per block (``conv_pallas.TILE_H``)
 
-# Launches of the kernel since the last reset; the plain CPU path does not count.
-launches = {"conv3x3": 0}
+# Launches of each kernel since the last reset: "conv3x3" the FMA kernel,
+# "conv3x3_tc" the tensor-core kernel; the plain CPU path does not count.
+launches = {"conv3x3": 0, "conv3x3_tc": 0}
+_LAUNCH_KEY = {"fma": "conv3x3", "tc": "conv3x3_tc"}
 
-_lib = None
+_libs = {}
 
 
 def reset_launches() -> None:
-    launches["conv3x3"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> None:
@@ -93,28 +101,38 @@ def conv3x3_bias_lrelu_reference(
 # ---------------------------------------------------------------------------
 
 
-def _library() -> ctypes.CDLL:
-    """Build (once per source hash) and load ``csrc/conv3x3.cu``."""
-    global _lib
-    if _lib is None:
-        lib = load_library("conv3x3")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_bias_lrelu.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
-        lib.conv3x3_bias_lrelu.restype = i
-        _lib = lib
-    return _lib
+def route(dtype: torch.dtype, cin: int, cout: int, x_ptr: int) -> str:
+    """The kernel that takes a call on the card: ``"tc"`` (tensor cores) for
+    bfloat16 with Cin and Cout multiples of 8 (TMA's global strides are
+    multiples of 16 bytes) and ``x`` at a 16-byte-aligned address, else
+    ``"fma"``. The weights and the output the tensor-core kernel reads and
+    writes are fresh allocations, aligned by construction."""
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and x_ptr % 16 == 0:
+        return "tc"
+    return "fma"
 
 
-def build() -> Path:
-    """Build and load the kernel now; returns the shared library's path."""
-    return Path(_library()._name)
+def _library(name: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/<name>.cu``."""
+    if name not in _libs:
+        lib = load_library(name)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "conv3x3":
+            lib.conv3x3_bias_lrelu.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
+            lib.conv3x3_bias_lrelu.restype = i
+        else:
+            lib.conv3x3_bias_lrelu_tc.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+            lib.conv3x3_bias_lrelu_tc.restype = i
+        _libs[name] = lib
+    return _libs[name]
 
 
 def conv3x3_bias_lrelu(
     x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, slope: float = 0.2
 ) -> torch.Tensor:
     """Fused 3x3 SAME conv + bias + leaky ReLU, NHWC / HWIO; K6 on CUDA
-    tensors, the plain version on CPU tensors. Forward only."""
+    tensors (the kernel :func:`route` picks), the plain version on CPU
+    tensors. Forward only."""
     if x.requires_grad or kernel.requires_grad or bias.requires_grad:
         raise ValueError("conv3x3_bias_lrelu is forward only (the Pallas kernel has no gradient): "
                          "pass tensors that do not require grad")
@@ -122,20 +140,40 @@ def conv3x3_bias_lrelu(
         return conv3x3_bias_lrelu_reference(x, kernel, bias, slope)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return launch(x, kernel, bias, slope)
+
+
+def launch(
+    x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, slope: float = 0.2, which: Optional[str] = None
+) -> torch.Tensor:
+    """K6 on CUDA tensors: the kernel :func:`route` picks, or ``which``
+    ("tc" or "fma"), for measurements only: the benchmark also times the FMA
+    kernel on bfloat16, beside the tensor-core kernel in one run."""
     _check(x, kernel, bias)
     b, h, w, cin = x.shape
     cout = kernel.shape[3]
     if b > 65535 or h // TILE_H > 65535:
         raise ValueError(f"batch {b} or height {h} too large for the kernel's grid")
     x, kernel, bias = x.contiguous(), kernel.contiguous(), bias.contiguous()
+    chosen = route(x.dtype, cin, cout, x.data_ptr())
+    which = which or chosen
+    if which not in _LAUNCH_KEY or (which == "tc" and chosen != "tc"):
+        raise ValueError(f"K6 kernel {which!r} does not take {x.dtype}, Cin {cin}, Cout {cout}, "
+                         f"x at {x.data_ptr():#x}")
     out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
-    lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_bias_lrelu(
-            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, int(x.dtype == torch.bfloat16), float(slope), stream,
-        )
-    raise_on(err, "conv3x3_bias_lrelu")
-    launches["conv3x3"] += 1
+        if which == "tc":
+            wt = kernel.reshape(9, cin, cout).transpose(1, 2).contiguous()  # (tap, Cout, Cin): K-major
+            err = _library("conv3x3_tc").conv3x3_bias_lrelu_tc(
+                x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                b, h, w, cin, cout, float(slope), stream,
+            )
+        else:
+            err = _library("conv3x3").conv3x3_bias_lrelu(
+                x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                b, h, w, cin, cout, int(x.dtype == torch.bfloat16), float(slope), stream,
+            )
+    raise_on(err, f"conv3x3_bias_lrelu ({which})")
+    launches[_LAUNCH_KEY[which]] += 1
     return out

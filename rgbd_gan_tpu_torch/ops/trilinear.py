@@ -2,7 +2,8 @@
 
 Port of :mod:`rgbd_gan_tpu.ops.trilinear_pallas`. On a CUDA tensor the lift
 runs the hand-written kernels in ``csrc/trilinear.cu`` (K3 forward, K4
-backward, and their windowed pair K5); on a CPU tensor it runs
+backward, and their windowed pair K5; the forward in its vectorised form,
+four channels a thread, where :func:`fwd_route` says so); on a CPU tensor it runs
 :func:`trilinear_lift_reference` and :func:`trilinear_lift_reference_vjp`,
 the plain PyTorch versions of the same function. A CUDA tensor never falls
 back to the plain version.
@@ -26,7 +27,6 @@ accumulates in float32. ``window=w`` restricts each tile of
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -37,8 +37,10 @@ from ._build import load_library, raise_on
 TILE_N = 1024  # cells per window tile (``trilinear_pallas.TILE_N``)
 
 # Launches of each kernel since the last reset; the plain CPU path does not
-# count. The windowed pair counts apart from the full kernels.
-launches = {"fwd": 0, "bwd": 0, "fwd_win": 0, "bwd_win": 0}
+# count. The windowed pair counts apart from the full kernels, and the
+# vectorised forward (``*_vec4``) apart from the thread-per-(cell, channel)
+# one.
+launches = {"fwd": 0, "fwd_vec4": 0, "bwd": 0, "fwd_win": 0, "fwd_win_vec4": 0, "bwd_win": 0}
 
 _lib = None
 
@@ -189,6 +191,15 @@ def trilinear_lift_reference_vjp(
 # ---------------------------------------------------------------------------
 
 
+def fwd_route(c: int, voxel_ptr: int) -> str:
+    """The forward kernel that takes a call on the card: ``"vec4"``
+    (``lift_fwd_vec4_kernel``: each thread 4 channels of a cell, float4 loads
+    and stores) when C % 4 == 0 and the grid lies at a 16-byte-aligned
+    address, else ``"generic"`` (``lift_fwd_kernel``: a thread per (cell,
+    channel)). The output is a fresh allocation, aligned by construction."""
+    return "vec4" if c % 4 == 0 and voxel_ptr % 16 == 0 else "generic"
+
+
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/trilinear.cu``."""
     global _lib
@@ -197,19 +208,18 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.trilinear_lift_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.trilinear_lift_fwd.restype = i
+        lib.trilinear_lift_fwd_vec4.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.trilinear_lift_fwd_vec4.restype = i
         lib.trilinear_lift_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.trilinear_lift_bwd.restype = i
         _lib = lib
     return _lib
 
 
-def build() -> Path:
-    """Build and load the kernels now; returns the shared library's path."""
-    return Path(_library()._name)
-
-
-def _fwd(voxel, vox_coords, in_bounds, dtype=None, window=None) -> torch.Tensor:
-    """K3 (or windowed K5) on CUDA tensors, the plain version on CPU tensors."""
+def _fwd(voxel, vox_coords, in_bounds, dtype=None, window=None, route=None) -> torch.Tensor:
+    """K3 (or windowed K5) on CUDA tensors, the plain version on CPU tensors.
+    ``route`` overrides :func:`fwd_route`'s choice, for measurements only:
+    ``"generic"`` also takes the calls that ``"vec4"`` takes."""
     dtype = _operand_dtype(dtype)
     if voxel.device.type == "cpu":
         return trilinear_lift_reference(voxel, vox_coords, in_bounds, dtype, window)
@@ -220,16 +230,20 @@ def _fwd(voxel, vox_coords, in_bounds, dtype=None, window=None) -> torch.Tensor:
     voxel, vox_coords, mask = voxel.contiguous(), vox_coords.contiguous(), mask.contiguous()
     b, g, c = voxel.shape[0], voxel.shape[1], voxel.shape[4]
     n = vox_coords.shape[2]
+    chosen = fwd_route(c, voxel.data_ptr())
+    route = route or chosen
+    if route not in ("generic", "vec4") or (route == "vec4" and chosen != "vec4"):
+        raise ValueError(f"forward route {route!r} does not take C={c} with the grid at {voxel.data_ptr():#x}")
     out = torch.empty(b, n, c, dtype=torch.float32, device=voxel.device)
     lib = _library()
+    args = (voxel.data_ptr(), vox_coords.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            b, g, c, n, int(dtype == torch.bfloat16), int(window or 0))
     with torch.cuda.device(voxel.device):
         stream = torch.cuda.current_stream(voxel.device).cuda_stream
-        err = lib.trilinear_lift_fwd(
-            voxel.data_ptr(), vox_coords.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, g, c, n, int(dtype == torch.bfloat16), int(window or 0), stream,
-        )
-    raise_on(err, "trilinear_lift_fwd")
-    launches["fwd" if window is None else "fwd_win"] += 1
+        entry = lib.trilinear_lift_fwd if route == "generic" else lib.trilinear_lift_fwd_vec4
+        err = entry(*args, stream)
+    raise_on(err, f"trilinear_lift_fwd ({route})")
+    launches[("fwd" if window is None else "fwd_win") + ("_vec4" if route == "vec4" else "")] += 1
     return out
 
 

@@ -10,7 +10,9 @@ float32), forward only. For each (dtype, shape) it prints one JSON line
 with the time and TFLOP/s of three ways to compute the same function on
 the card:
 
-- ``kernel``: :func:`rgbd_gan_tpu_torch.ops.conv.conv3x3_bias_lrelu` (K6);
+- ``kernel``: :func:`rgbd_gan_tpu_torch.ops.conv.conv3x3_bias_lrelu` (K6;
+  ``route`` names the kernel it took, "tc" for the tensor cores or "fma",
+  and ``launches`` counts each kernel's launches for the record);
 - ``library``: ``F.conv2d`` on channels_last views of the NHWC tensors, with
   OIHW weights and the bias, then ``F.leaky_relu(0.2)`` (two calls, one
   figure; a yardstick used nowhere in the port);
@@ -18,11 +20,16 @@ the card:
 
 the JAX tool's relative error ``max|y - ref| / max|ref|`` of K6 against the
 library and against the plain version, K6's largest absolute error against
-the plain version, and the bound: the least time the card could take, the
-larger of the FLOPs (2*B*H*W*Cin*Cout*9) over the peak for the dtype and the
+the plain version, and the bound: the least time
+the card could take, the larger of the FLOPs (2*B*H*W*Cin*Cout*9) over the peak for the dtype and the
 bytes (x read once, out written once, weights and bias read once) over the
 memory rate. TF32 is off. Times are CUDA-event times of back-to-back calls
-after one warm-up call. It needs a CUDA device and fails without one.
+after one warm-up call. Then, for each bfloat16 shape, one more line times
+the FMA kernel (the route bfloat16 took before the tensor-core kernel, and
+still takes where the tensor-core kernel cannot) and the tensor-core kernel
+in turns (FMA, tensor cores, tensor cores, FMA), so that their ratio comes
+from one card, and gives how far each lies from the plain version beyond
+one bf16 ulp. It needs a CUDA device and fails without one.
 """
 
 from __future__ import annotations
@@ -75,6 +82,13 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(t, dtype=torch.float32), exponent - 8)
 
 
+def excess_over_one_bf16_ulp(y: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """How far ``y`` lies from ``ref`` beyond one bf16 ulp of the larger of
+    the two, elementwise (negative where within it)."""
+    y, ref = y.float(), ref.float()
+    return (y - ref).abs() - bf16_ulp(torch.maximum(y.abs(), ref.abs()))
+
+
 def cuda_event_ms(fn: Callable[[], object], reps: int) -> float:
     """ms per call between CUDA events around ``reps`` back-to-back calls."""
     fn()
@@ -96,6 +110,14 @@ def library_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
     return lambda: F.leaky_relu(F.conv2d(x_nchw, w_oihw, bias, padding=1), SLOPE).permute(0, 2, 3, 1)
 
 
+def _draws(rng: np.random.RandomState, shape: Sequence[int], dtype: torch.dtype):
+    """x ``randn``, kernel ``randn * 0.05``, bias ``randn * 0.1`` on the
+    card, rounded through float32 to ``dtype``."""
+    b, h, w, cin, cout = shape
+    arrays = (rng.randn(b, h, w, cin), rng.randn(3, 3, cin, cout) * 0.05, rng.randn(cout) * 0.1)
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in arrays]
+
+
 def measure(reps: int = 10) -> List[Dict[str, object]]:
     """One record per (dtype, shape), in the JAX tool's order, each function
     timed over ``reps`` calls. Each record counts the calls it made to K6 in
@@ -109,9 +131,7 @@ def measure(reps: int = 10) -> List[Dict[str, object]]:
     for dtype in DTYPES:
         for shape in SHAPES:
             b, h, w, cin, cout = shape
-            x = torch.from_numpy(rng.randn(b, h, w, cin).astype(np.float32)).to("cuda", dtype)
-            k = torch.from_numpy((rng.randn(3, 3, cin, cout) * 0.05).astype(np.float32)).to("cuda", dtype)
-            bias = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to("cuda", dtype)
+            x, k, bias = _draws(rng, shape, dtype)
             calls = [0]
 
             def kernel():
@@ -122,18 +142,20 @@ def measure(reps: int = 10) -> List[Dict[str, object]]:
                 return conv.conv3x3_bias_lrelu_reference(x, k, bias, SLOPE)
 
             library = library_call(x, k, bias)
+            before = dict(conv.launches)
             y, ref, lib = kernel().float(), plain().float(), library().float()
             diff = (y - ref).abs()
             ref_max = ref.abs().max().item()
             rec = {
                 "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+                "route": conv.route(dtype, cin, cout, x.data_ptr()),
                 "max_abs_err": diff.max().item(), "max_abs_y": ref_max,
                 "rel_err_plain": diff.max().item() / (ref_max + 1e-6),
                 "rel_err_library": (y - lib).abs().max().item() / (lib.abs().max().item() + 1e-6),
                 **bound(shape, dtype),
             }
             if dtype == torch.bfloat16:  # how far K6 and the plain version lie apart beyond one bf16 ulp
-                excess = diff - bf16_ulp(torch.maximum(y.abs(), ref.abs()))
+                excess = excess_over_one_bf16_ulp(y, ref)
                 rec["max_excess_over_one_bf16_ulp"] = max(excess.max().item(), 0.0)
                 rec["n_beyond_one_bf16_ulp"] = int((excess > 0).sum())
                 del excess
@@ -143,8 +165,42 @@ def measure(reps: int = 10) -> List[Dict[str, object]]:
                 rec[f"{name}_ms" if name != "kernel" else "ms"] = ms
                 rec[f"{name}_tflops"] = rec["flops"] / ms / 1e9
             rec["kernel_calls"] = calls[0]
+            rec["launches"] = {key: n - before[key] for key, n in conv.launches.items()}
             records.append(rec)
             del x, k, bias
+    return records
+
+
+def compare_fma_and_tc(reps: int = 10) -> List[Dict[str, object]]:
+    """For each shape in bfloat16 (draws of the same laws as in
+    :func:`measure`): the FMA kernel and the tensor-core kernel timed in
+    turns, FMA, tensor cores, tensor cores, FMA, ``reps`` calls each time;
+    ms of each kernel is the mean of its two turns. Beside: their largest
+    absolute difference, ``max|ref|`` of the plain version and, for each
+    kernel, its largest excess over one bf16 ulp against the plain version
+    (``*_max_excess_over_one_bf16_ulp``, 0 when within it)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_conv measures only on a CUDA device")
+    rng = np.random.RandomState(1)
+    records = []
+    for shape in SHAPES:
+        x, k, bias = _draws(rng, shape, torch.bfloat16)
+        calls = {which: (lambda which=which: conv.launch(x, k, bias, SLOPE, which)) for which in ("fma", "tc")}
+        ys = {which: call().float() for which, call in calls.items()}
+        ref = conv.conv3x3_bias_lrelu_reference(x, k, bias, SLOPE).float()
+        checks = {f"{which}_max_excess_over_one_bf16_ulp": max(excess_over_one_bf16_ulp(y, ref).max().item(), 0.0)
+                  for which, y in ys.items()}
+        checks["max_abs_y"] = ref.abs().max().item()
+        diff = (ys["fma"] - ys["tc"]).abs().max().item()
+        del ys, ref
+        turns = [(which, cuda_event_ms(calls[which], reps)) for which in ("fma", "tc", "tc", "fma")]
+        ms = {which: sum(t for w_, t in turns if w_ == which) / 2 for which in ("fma", "tc")}
+        records.append({
+            "dtype": "bfloat16", "shape": list(shape), "fma_ms": ms["fma"], "tc_ms": ms["tc"],
+            "fma_over_tc": ms["fma"] / ms["tc"], "turns_ms": [t for _, t in turns],
+            "max_abs_diff_fma_tc": diff, **checks,
+        })
+        del x, k, bias
     return records
 
 
@@ -158,7 +214,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
-    for rec in measure(reps=args.reps):
+    for rec in measure(reps=args.reps) + compare_fma_and_tc(reps=args.reps):
         print(json.dumps(rec), flush=True)
     return 0
 

@@ -95,7 +95,7 @@ def test_plain_version_matches_conv2d_and_counts_no_launch():
     conv.reset_launches()
     got = conv.conv3x3_bias_lrelu(x, k, bias)
     torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=RTOL, atol=ATOL)
-    assert conv.launches == {"conv3x3": 0}
+    assert conv.launches == {"conv3x3": 0, "conv3x3_tc": 0}
 
 
 @pytest.mark.parametrize("dtype,bounds_ms,first_bound_by", [

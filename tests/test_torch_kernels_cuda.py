@@ -6,7 +6,8 @@ here skips.
 This file imports no JAX, so it also runs on a machine without it:
 ``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
 
-Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
+K6 takes one of two kernels by ``conv.route``: each case checks which launch
+count moved. Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
 d img, whose f32 atomics add in an order that changes from run to run. The
 lift: rtol/atol 1e-5 on the float32 forward (fused multiply-adds against
 separate ones), one bf16 ulp (rtol 2^-7) on the bf16 forward, and rtol 1e-5 /
@@ -221,8 +222,10 @@ def test_lift_frustum_every_mode_uses_the_kernels(cuda):
     coords_const = torch.tensor(frustum_camera_coords(), device=cuda)
     vox, mask = frustum_voxel_coords(mats, coords_const)
     ref = trilinear.trilinear_lift(voxel.cpu(), vox.cpu(), mask.cpu()).reshape(1, 56, 64, 64, 4)
-    for mode, key, atol in (("gather", "fwd", 1e-5), ("pallas_f32", "fwd", 1e-5), ("pallas", "fwd", 0.05),
-                            ("pallas_win_f32", "fwd_win", 1e-5), ("pallas_win", "fwd_win", 0.05)):
+    # C = 4: every forward on the vectorised kernel
+    for mode, key, atol in (("gather", "fwd_vec4", 1e-5), ("pallas_f32", "fwd_vec4", 1e-5),
+                            ("pallas", "fwd_vec4", 0.05), ("pallas_win_f32", "fwd_win_vec4", 1e-5),
+                            ("pallas_win", "fwd_win_vec4", 0.05)):
         before = trilinear.launches[key]
         out = lift_frustum(voxel, mats, coords_const, mode)
         assert trilinear.launches[key] == before + 1
@@ -243,14 +246,41 @@ def test_deepvoxels_generator_on_the_card_matches_cpu(cuda, occlusion_type):
         gen = DeepVoxelsGenerator(16, occlusion_type=occlusion_type, lift_mode="pallas_win_f32",
                                   generator=torch.Generator().manual_seed(0))  # same weights
         gen.to(device).requires_grad_(False)
-        before = trilinear.launches["fwd_win"]
+        before = trilinear.launches["fwd_win_vec4"]  # C = 32: the vectorised forward
         outs[str(device)] = gen(z.to(device), mats.to(device), z2.to(device)).cpu()
-        assert trilinear.launches["fwd_win"] == before + (device != "cpu")
+        assert trilinear.launches["fwd_win_vec4"] == before + (device != "cpu")
         stats[str(device)] = {k: v.cpu() for k, v in gen.state_dict().items() if k.endswith(("mean", "var"))}
     torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-3, atol=1e-3)
     assert (len(stats["cpu"]) == 4) == (occlusion_type == "deepvoxels")
     for k, v in stats["cpu"].items():
         torch.testing.assert_close(stats["cuda"][k], v, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window,n", [(None, 1500), (4, 2048)], ids=["full_ragged", "win"])
+@pytest.mark.parametrize("c", [32, 12, 3])
+def test_lift_forward_routes_match_plain_version(cuda, c, window, n, dtype):
+    """The vectorised forward (C % 4 == 0; 8 threads a cell at C = 32, 2 at
+    C = 12) and the thread-per-(cell, channel) kernel against the plain
+    version, each call counted on its own kernel; N = 1500 leaves a ragged
+    last tile (the window needs whole tiles of 1024 cells)."""
+    voxel, coords, mask, _ = _lift_inputs(2, 8, c, n, seed=24, device=cuda)
+    chosen = trilinear.fwd_route(c, voxel.data_ptr())
+    assert chosen == ("generic" if c == 3 else "vec4")
+    want = trilinear.trilinear_lift_reference(voxel, coords, mask, dtype, window)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    routes = ("generic",) if c == 3 else ("vec4", "generic")
+    for route in routes:
+        key = ("fwd" if window is None else "fwd_win") + ("_vec4" if route == "vec4" else "")
+        before = dict(trilinear.launches)
+        # the chosen kernel through the wrapper's own choice, the other one by name
+        got = trilinear._fwd(voxel, coords, mask, dtype, window, route=route if route != chosen else None)
+        torch.cuda.synchronize()
+        assert trilinear.launches == {**before, key: before[key] + 1}
+        torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
+    if c == 3:
+        with pytest.raises(ValueError, match="route"):
+            trilinear._fwd(voxel, coords, mask, dtype, window, route="vec4")
 
 
 def test_lift_wrapper_refuses_what_the_kernels_do_not_take(cuda):
@@ -272,6 +302,22 @@ def _conv_inputs(shape, dtype, seed, device):
     return [torch.tensor(a.astype("f"), device=device).to(dtype) for a in arrays]
 
 
+def _assert_conv_matches(x, k, bias, key):
+    """K6 through the public wrapper against the plain version; ``key``: the
+    launch count that must move by one (the other must not move)."""
+    before = dict(conv.launches)
+    got = conv.conv3x3_bias_lrelu(x, k, bias)
+    torch.cuda.synchronize()
+    assert conv.launches == {**before, key: before[key] + 1}
+    assert got.dtype == x.dtype and tuple(got.shape) == tuple(x.shape[:3]) + (k.shape[3],)
+    want = conv.conv3x3_bias_lrelu_reference(x, k, bias)
+    got, want = got.float(), want.float()
+    diff, allowed = (got - want).abs(), CONV_REL * want.abs().max()
+    if x.dtype == torch.bfloat16:
+        allowed = allowed + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    assert bool((diff <= allowed).all()), float((diff - allowed).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (1, 8, 8, 3, 5),  # Cin 3, Cout 5: ragged chunk and channel tile, a W tile of 8 of 16
@@ -279,18 +325,45 @@ def _conv_inputs(shape, dtype, seed, device):
     (32, 32, 32, 256, 256),  # the benchmark's last shape
 ])
 def test_conv_kernel_matches_plain_version(cuda, shape, dtype):
+    """Each call on the kernel its route names: bf16 with Cin, Cout % 8 == 0
+    on the tensor cores, the rest on the FMA kernel."""
     x, k, bias = _conv_inputs(shape, dtype, seed=sum(shape), device=cuda)
-    before = conv.launches["conv3x3"]
-    got = conv.conv3x3_bias_lrelu(x, k, bias)
-    torch.cuda.synchronize()
-    assert conv.launches["conv3x3"] == before + 1
-    assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (shape[4],)
-    want = conv.conv3x3_bias_lrelu_reference(x, k, bias)
-    got, want = got.float(), want.float()
-    diff, allowed = (got - want).abs(), CONV_REL * want.abs().max()
-    if dtype == torch.bfloat16:
-        allowed = allowed + bf16_ulp(torch.maximum(got.abs(), want.abs()))
-    assert bool((diff <= allowed).all()), float((diff - allowed).max())
+    key = "conv3x3_tc" if conv.route(dtype, shape[3], shape[4], x.data_ptr()) == "tc" else "conv3x3"
+    assert (key == "conv3x3_tc") == (dtype == torch.bfloat16 and shape[3] != 3)
+    _assert_conv_matches(x, k, bias, key)
+
+
+@pytest.mark.parametrize("shape", [
+    (32, 32, 32, 256, 256),  # the benchmark's last shape: 4 x 32 pixel boxes, two 128-channel tiles
+    (2, 16, 24, 24, 72),  # W 24 in a 32-wide box, Cin 24 of a 64-channel chunk, Cout 72 of 128
+    (2, 8, 128, 64, 64),  # one row of 128 pixels, the 64-channel tile
+    (1, 16, 200, 136, 8),  # W 200 over two 128-wide boxes, Cin 136 over three chunks, Cout 8
+    (3, 8, 4, 16, 16),  # a 4-wide box of 32 rows, 24 of them below the image (zero-filled, masked)
+], ids=["bench_32x32_256", "ragged", "row_of_128", "wide_deep", "narrow"])
+def test_conv_tensor_core_kernel_matches_plain_version(cuda, shape):
+    x, k, bias = _conv_inputs(shape, torch.bfloat16, seed=sum(shape) + 1, device=cuda)
+    assert conv.route(x.dtype, shape[3], shape[4], x.data_ptr()) == "tc"
+    _assert_conv_matches(x, k, bias, "conv3x3_tc")
+
+
+def test_conv_tensor_core_kernel_takes_a_sliced_batch(cuda):
+    """An image of the batch starts 16-byte aligned: the slice stays on the
+    tensor cores and gives what the same images give alone."""
+    x, k, bias = _conv_inputs((3, 16, 24, 24, 72), torch.bfloat16, seed=22, device=cuda)
+    part = x[1:]
+    assert part.data_ptr() != x.data_ptr() and part.data_ptr() % 16 == 0
+    _assert_conv_matches(part, k, bias, "conv3x3_tc")
+    torch.testing.assert_close(conv.conv3x3_bias_lrelu(part, k, bias), conv.conv3x3_bias_lrelu(x, k, bias)[1:],
+                               rtol=0, atol=0)
+
+
+def test_conv_unaligned_bf16_input_goes_to_the_fma_kernel(cuda):
+    x, k, bias = _conv_inputs((2, 8, 12, 16, 8), torch.bfloat16, seed=23, device=cuda)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)  # 2 bytes past an aligned address
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and conv.route(x.dtype, 16, 8, shifted.data_ptr()) == "fma"
+    _assert_conv_matches(shifted, k, bias, "conv3x3")
 
 
 def test_conv_kernel_takes_strided_inputs(cuda):
