@@ -5,9 +5,10 @@ Phases, each printing one line; any failure exits non-zero:
 1. device: CUDA, triton/yaml availability, nvcc, card name and power limit;
    builds the bilinear-gather, trilinear-lift and the two 3x3-conv kernel
    sources from `rgbd_gan_tpu_torch/csrc/`, one nvcc for each source, all at
-   once; prints ptxas's registers, shared memory and spills of the
-   tensor-core conv and the vectorised lift forward, and fails unless the
-   tensor-core conv's SASS holds HGMMA (Hopper's warpgroup MMA).
+   once; prints ptxas's registers, shared memory and spills of the FMA
+   conv and the vectorised lift backward, and fails unless the tensor-core
+   conv's SASS holds HGMMA (Hopper's warpgroup MMA) and the lift's a
+   vector reduction of 4 floats (`red.global.add.v4.f32`).
 2. bilinear kernel parity at the StyleGAN step's shapes (B=32, H=W=128, C=4,
    N=16384) and at the DeepVoxels step's (B=10, H=W=64, N=4096), exact True
    and False: K1 (forward) and K2 (backward) against the plain PyTorch
@@ -17,9 +18,10 @@ Phases, each printing one line; any failure exits non-zero:
    K4 and the windowed pair K5, float32 and bf16 operands, against the plain
    PyTorch version, with both times; `F.grid_sample` timed beside K3 and its
    backward (`aten.grid_sampler_3d_backward`) beside K4. On the main paths'
-   pairs (f32 full, bf16 windowed) the forward's three routes in turns: the
-   thread-per-(cell, channel) kernel, the vectorised one, and the vectorised
-   one with neighbouring threads on neighbouring cells.
+   pairs (f32 full, bf16 windowed) the forward's and the backward's two
+   routes each in turns (generic, vectorised, vectorised, generic): the
+   thread-per-(cell, channel) kernel and the vectorised one, each held
+   against the other and against the plain version.
 4. K6, the fused 3x3 conv + bias + leaky ReLU, on its path: the measuring
    function of `rgbd_gan_tpu_torch.tools.bench_conv` at its five shapes in
    float32 and bfloat16, holding the kernel against the plain PyTorch
@@ -27,7 +29,7 @@ Phases, each printing one line; any failure exits non-zero:
    and the bound; every bfloat16 call must have launched the tensor-core
    kernel and every float32 call the FMA kernel. Then, outside the path's
    count, the FMA kernel and the tensor-core kernel in bfloat16 in turns at
-   every shape.
+   every shape, and the FMA kernel and cuDNN in float32 in turns.
 5. one StyleGAN train step at a small width (ch 32, batch 4, 32 px, rotate
    and occlusion on) from the same weights and draws, on the CPU with the
    plain gather and on the card with the kernels; the losses must agree.
@@ -39,9 +41,9 @@ Phases, each printing one line; any failure exits non-zero:
 8. the DeepVoxels main path: the deepvoxels_shapenet_car values (ch 256,
    batch 10, 64 px, accumulative, focal gamma 2) for 5 iterations the same
    way; the windowed lift launched twice forward and once backward per
-   iteration, the bilinear kernels once each.
+   iteration, each on its vectorised kernel, the bilinear kernels once each.
 9. the same configuration with `lift_mode: pallas_f32` for 2 iterations, so
-   that the full-width lift kernels run on a path too.
+   that the full-width lift kernels run on a path too (vectorised only).
 
 Each path (the benchmark of phase 4 and the three runs of phases 7-9) is
 driven with every kernel's launch count set to 0 just before it and read
@@ -106,10 +108,11 @@ BILINEAR_SHAPES = {
 }
 LIFT_SHAPE = dict(B=10, G=32, C=32, N=56 * 64 * 64)
 # the lift's launch counts with nothing launched
-LIFT_NONE = {"fwd": 0, "fwd_vec4": 0, "bwd": 0, "fwd_win": 0, "fwd_win_vec4": 0, "bwd_win": 0}
+LIFT_NONE = {k: 0 for k in ("fwd", "fwd_vec4", "bwd", "bwd_vec4", "fwd_win", "fwd_win_vec4", "bwd_win",
+                            "bwd_win_vec4")}
 # the kernel sources of `rgbd_gan_tpu_torch/csrc/`, one nvcc each, all at once
 SOURCES = ("bilinear", "trilinear", "conv3x3", "conv3x3_tc")
-NEW_KERNELS = ("conv3x3_tc_kernel", "lift_fwd_vec4_kernel")  # ptxas figures printed for these
+NEW_KERNELS = ("conv3x3_kernel", "lift_bwd_vec4_kernel")  # ptxas figures printed for these
 # published peaks of one H100 SXM: HBM bytes/s and f32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -197,9 +200,14 @@ def phase_device(torch):
     log("ptxas", kernels=json.dumps(report))
     # the tensor-core kernel really runs on the tensor cores: Hopper's warpgroup MMA in its SASS
     hgmma = _count_in_sass(built["conv3x3_tc"][0], "HGMMA")
-    log("sass", conv3x3_tc_HGMMA=hgmma, conv3x3_HGMMA=_count_in_sass(built["conv3x3"][0], "HGMMA"))
+    reductions = _opcodes_in_sass(built["trilinear"][0], ("RED", "ATOM"))
+    log("sass", conv3x3_tc_HGMMA=hgmma, conv3x3_HGMMA=_count_in_sass(built["conv3x3"][0], "HGMMA"),
+        trilinear_reductions=json.dumps(reductions))
     if hgmma == 0:
         raise AssertionError("conv3x3_tc.cu has no HGMMA instruction")
+    # the vectorised lift backward reduces 4 floats an instruction
+    if not any(op.startswith("RED") and "F32x4" in op for op in reductions):
+        raise AssertionError(f"trilinear.cu has no vector reduction of 4 floats: {reductions}")
     print(smi, flush=True)
     return has_yaml
 
@@ -231,14 +239,31 @@ def _demangle(symbol: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
 
 
-def _count_in_sass(so: str, opcode: str) -> int:
+def _sass(so: str) -> str:
     from rgbd_gan_tpu_torch.ops._build import nvcc_path
 
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     res = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"cuobjdump failed on {so}: {res.stderr}")
-    return sum(opcode in line for line in res.stdout.splitlines())
+    return res.stdout
+
+
+def _count_in_sass(so: str, opcode: str) -> int:
+    return sum(opcode in line for line in _sass(so).splitlines())
+
+
+def _opcodes_in_sass(so: str, prefixes) -> dict:
+    """{opcode: count} of the SASS instructions of ``so`` whose opcode
+    starts with one of ``prefixes`` (e.g. RED.E.ADD.F32...)."""
+    import re
+
+    counts = {}
+    for m in re.finditer(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", _sass(so)):
+        op = m.group(1)
+        if op.startswith(tuple(prefixes)):
+            counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def _time_ms(torch, fn, reps: int = 20, attempts: int = 3):
@@ -366,6 +391,22 @@ def _lift_inputs(torch):
     return voxel, vox.contiguous(), in_bounds.contiguous(), cot
 
 
+def _cells_per_run(torch, vox, in_bounds, g: int, walk: int = 32) -> float:
+    """Valid cells per run of one corner base along the walks of the
+    vectorised lift backward (each thread walks ``walk`` neighbouring cells
+    and reduces its corner sums when the base changes): the merge factor of
+    its reductions on these inputs."""
+    b, _, n = vox.shape
+    i0 = torch.where(in_bounds[:, None], vox, torch.zeros_like(vox)).to(torch.int64).clamp(0, g - 1)
+    key = ((i0[:, 2] * g + i0[:, 1]) * g + i0[:, 0]).reshape(b, n // walk, walk)
+    valid = in_bounds.reshape(b, n // walk, walk)
+    pos = torch.arange(walk, device=vox.device).expand_as(key)
+    last = torch.cummax(torch.where(valid, pos, torch.full_like(pos, -1)), dim=-1).values
+    prev = torch.cat([torch.full_like(last[..., :1], -1), last[..., :-1]], dim=-1)  # last valid cell before
+    starts = valid & ((prev < 0) | (torch.gather(key, -1, prev.clamp(min=0)) != key))
+    return float(valid.sum()) / float(starts.sum())
+
+
 def phase_lift_kernels(torch):
     import torch.nn.functional as F
 
@@ -382,7 +423,8 @@ def phase_lift_kernels(torch):
     fwd = _bound(4 * voxel.numel() + b * n + valid * 12 + 4 * b * n * c, valid * c * 22)
     bwd = _bound(b * n + valid * 12 + 4 * valid * c + 4 * voxel.numel(), valid * c * 20)
     bounds = {"fwd": fwd, "bwd": bwd, "fwd_win": fwd, "bwd_win": bwd}
-    log("lift_bounds", fwd=json.dumps(fwd), bwd=json.dumps(bwd), valid_cells=valid, of=b * n)
+    log("lift_bounds", fwd=json.dumps(fwd), bwd=json.dumps(bwd), valid_cells=valid, of=b * n,
+        cells_per_corner_base_run=f"{_cells_per_run(torch, vox, in_bounds, g):.3f}")
 
     errs, times = {}, {}
     for window in (None, LIFT_WINDOW):
@@ -447,6 +489,33 @@ def phase_lift_kernels(torch):
             chosen=trilinear.fwd_route(c, voxel.data_ptr()), **{f"{r}_ms": f"{ms[r]:.4f}" for r in sorted(ms)},
             turns_ms=json.dumps([round(dev if dev is not None else wall, 4) for _, (dev, wall) in turns]),
             generic_over_vec4=f"{ms['generic'] / ms['vec4']:.3f}", **{k: f"{v:.3e}" for k, v in diffs.items()})
+
+    # the backward's two kernels on the same pairs, in turns: the thread-per-
+    # (cell, channel) kernel with scalar atomics (the backward before the
+    # vectorised one) and the vectorised kernel, each against the plain version
+    for window, dtype in ((None, torch.float32), (LIFT_WINDOW, torch.bfloat16)):
+        dvs = {r: trilinear._bwd(voxel.shape, vox, in_bounds, cot, dtype, window, route=r)
+               for r in ("generic", "vec4")}
+        torch.cuda.synchronize()
+        rdv = trilinear.trilinear_lift_reference_vjp(voxel.shape, vox, in_bounds, cot, dtype, window)
+        diffs = {"generic_max_abs_diff_to_vec4": (dvs["generic"] - dvs["vec4"]).abs().max().item()}
+        diffs.update({f"{r}_max_abs_err": (dv - rdv).abs().max().item() for r, dv in dvs.items()})
+        ok = all(torch.allclose(dv, rdv, rtol=LIFT_DV_RTOL, atol=LIFT_DV_ATOL) for dv in dvs.values())
+        del dvs, rdv
+        order = ("generic", "vec4", "vec4", "generic")
+        turns = [(r, _time_ms(torch, lambda r=r: trilinear._bwd(voxel.shape, vox, in_bounds, cot, dtype, window,
+                                                                route=r), reps=5)) for r in order]
+        ms = {r: statistics.mean(dev if dev is not None else wall for r_, (dev, wall) in turns if r_ == r)
+              for r in set(order)}
+        suffix = "" if window is None else "_win"
+        times["bwd" + suffix + "_generic"] = ms["generic"]
+        log("lift_bwd_routes", window=window, operands="f32" if dtype == torch.float32 else "bf16",
+            chosen=trilinear.bwd_route(c, cot.data_ptr()), **{f"{r}_ms": f"{ms[r]:.4f}" for r in sorted(ms)},
+            turns_ms=json.dumps([round(dev if dev is not None else wall, 4) for _, (dev, wall) in turns]),
+            generic_over_vec4=f"{ms['generic'] / ms['vec4']:.3f}",
+            vec4_share_of_bound=f"{bwd['bound_ms'] / ms['vec4']:.3f}", **{k: f"{v:.3e}" for k, v in diffs.items()})
+        if not ok:
+            raise AssertionError(f"lift backward routes disagree with the plain version (window={window})")
 
     # one PyTorch call for the same sample (valid cells): a yardstick, used nowhere in the port
     vol = voxel.permute(0, 4, 1, 2, 3).contiguous()
@@ -536,9 +605,17 @@ def phase_conv(torch):
             err = r[f"{which}_max_excess_over_one_bf16_ulp"]
             if not err <= allowed:
                 failed.append(("bfloat16", which, r["shape"], err, allowed))
+    # the FMA kernel against cuDNN in float32 (TF32 off), in turns on this card
+    versus_library = bench_conv.compare_f32_with_library(reps=CONV_REPS)
+    for r in versus_library:
+        allowed = CONV_F32_REL * r["max_abs_y"]
+        log("conv_fma_vs_cudnn", **{k: (json.dumps(v) if isinstance(v, list) else v) for k, v in r.items()},
+            allowed=allowed)
+        if not r["max_abs_err"] <= allowed:
+            failed.append(("float32", "fma", r["shape"], r["max_abs_err"], allowed))
     if failed:
-        raise AssertionError(f"K6 parity failed in the in-turn comparison: {failed}")
-    return records, n, compared
+        raise AssertionError(f"K6 parity failed in the in-turn comparisons: {failed}")
+    return records, n, compared, versus_library
 
 
 def _small_config():
@@ -626,7 +703,7 @@ def phase_deepvoxels_step_parity(torch):
             dis_after_update_atol=DIS_AFTER_UPDATE_ATOL)
         if apart > MAX_SHARE_APART:
             raise AssertionError(f"deepvoxels step parity: {apart:.4f} of the generator's elements ended apart")
-        if trilinear.launches != {**LIFT_NONE, "fwd_win_vec4": 2, "bwd_win": 1}:
+        if trilinear.launches != {**LIFT_NONE, "fwd_win_vec4": 2, "bwd_win_vec4": 1}:
             raise AssertionError(f"deepvoxels step parity: lift launches {trilinear.launches}")
 
 
@@ -716,18 +793,19 @@ def phase_deepvoxels_paths(torch, has_yaml: bool):
     bil_win, win, files = _drive(
         torch, has_yaml, "main_path_deepvoxels", DEEPVOXELS_SHAPENET_CAR, 64, "deepvoxels_shapenet_car")
     # per iteration: the G phase lifts forward and backward, the D phase
-    # forward only; at C = 32 every forward on the vectorised kernel
-    if win != {**LIFT_NONE, "fwd_win_vec4": 10, "bwd_win": 5}:
+    # forward only; at C = 32 every launch on the vectorised kernels
+    if win != {**LIFT_NONE, "fwd_win_vec4": 10, "bwd_win_vec4": 5}:
         raise AssertionError(f"deepvoxels main path: lift launches {win}")
     if "Map_latest.npz" not in files:
         raise AssertionError("deepvoxels main path: Map_latest.npz missing")
     bil_full, full, _ = _drive(
         torch, has_yaml, "main_path_deepvoxels_f32", dict(DEEPVOXELS_SHAPENET_CAR, lift_mode="pallas_f32", iteration=2),
         64, "deepvoxels_shapenet_car_f32")
-    if full != {**LIFT_NONE, "fwd_vec4": 4, "bwd": 2}:
+    if full != {**LIFT_NONE, "fwd_vec4": 4, "bwd_vec4": 2}:
         raise AssertionError(f"deepvoxels pallas_f32 path: lift launches {full}")
     # the kernels that ran: the windowed pair on the yml's default, the full pair on pallas_f32
-    lift = {"fwd": full["fwd_vec4"], "bwd": full["bwd"], "fwd_win": win["fwd_win_vec4"], "bwd_win": win["bwd_win"]}
+    lift = {"fwd": full["fwd_vec4"], "bwd": full["bwd_vec4"], "fwd_win": win["fwd_win_vec4"],
+            "bwd_win": win["bwd_win_vec4"]}
     return lift, bil_win, bil_full
 
 
@@ -749,7 +827,7 @@ def main() -> int:
     bilinear_parity = {path: phase_kernels(torch, path) for path in BILINEAR_SHAPES}
     errs, times, bounds = bilinear_parity["stylegan"]
     lift_errs, lift_times, lift_bounds = phase_lift_kernels(torch)
-    conv_records, conv_launches, conv_compared = phase_conv(torch)
+    conv_records, conv_launches, conv_compared, conv_versus_library = phase_conv(torch)
     phase_step_parity(torch)
     phase_deepvoxels_step_parity(torch)
     by_path = {"stylegan": phase_main_path(torch, has_yaml)}
@@ -783,8 +861,8 @@ def main() -> int:
             lift_times[key], lift_times[key + "_plain"], lift_bounds[key],
             lift_times["library_" + key[:3]],
         )
-        if key.startswith("fwd"):  # the vectorised kernel ran; the forward before it, timed in turns
-            e.update(kernel="lift_fwd_vec4_kernel", generic_ms=lift_times[key + "_generic"])
+        # the vectorised kernel ran; the thread-per-(cell, channel) one, timed in turns
+        e.update(kernel=f"lift_{key[:3]}_vec4_kernel", generic_ms=lift_times[key + "_generic"])
         kernels.append(e)
     # K6 on its path (the benchmark), one entry per kernel: the FMA kernel
     # with float32 at the first shape on top, the tensor-core kernel with
@@ -803,6 +881,8 @@ def main() -> int:
         )
         if route == "tc":
             e["fma_vs_tc_in_turns"] = conv_compared
+        else:
+            e["fma_vs_cudnn_f32_in_turns"] = conv_versus_library
         kernels.append(e)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

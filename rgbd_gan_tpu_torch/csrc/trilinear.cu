@@ -30,9 +30,10 @@
 //   tile without a valid cell gives zeros. Equal to the full kernels when
 //   each tile's valid cells span at most w dim1-planes.
 //
-// Bound: memory traffic. At the training shapes (B=10, G=32, C=32,
-// N=229,376) the forward writes 294 MB and reads 42 MB of grid and 37 MB of
-// coordinates and mask; the backward reads the 294 MB cotangent. The window
+// Bound: memory traffic, by the bytes the functions must move. At the
+// training shapes (B=10, G=32, C=32, N=229,376) the forward writes 294 MB and reads 42 MB of grid and 37 MB of
+// coordinates and mask; the backward reads the valid cells' 161 MB of
+// cotangent rows and their coordinates and writes the 42 MB dV. The window
 // saves no work here: a corner outside it is simply not read. One block per
 // tile of 1024 cells. The 4 MB grid of a batch item stays in L2.
 //
@@ -45,11 +46,38 @@
 // neighbouring cells, which are neighbouring pixels at one depth and share
 // most corners, so the caches absorb much of the 8 x 128 bytes a cell
 // gathers.
-// Forward, other C (`lift_fwd_kernel`) and backward: a thread takes one
-// (cell, channel) pair at a time, so for C = 32 a warp is one cell, each
-// corner is one coalesced 128-byte read (or one line of atomics), and the
-// output row one coalesced write. K4 accumulates with f32 atomicAdd into a
-// zeroed buffer, so its summation order changes from run to run.
+//
+// Backward, C % 4 == 0 (`lift_bwd_vec4_kernel`): the scalar kernel issues
+// one f32 atomic per (valid cell, channel, corner), about 321 M a call at
+// the training shapes. Here the thread layout and the walk are the
+// forward's: 2^q threads a cell, 4 channels each, the cell terms computed
+// once per 4 channels, the cotangent read as one float4, and a masked cell
+// reads neither its coordinates nor its cotangent. Each thread keeps the 8
+// corner sums of its run of neighbouring cells in registers (Run) while the
+// next valid cell has the same corner base (the dim0, dim1, dim2 index i0;
+// the i1 follow from it), and reduces them into dV when the base changes
+// and at the end of the run: neighbouring pixels at one depth often fall
+// into one voxel (`chip_smoke.py` prints the cells a run on the training
+// frustum). A reduction is
+// one `red.global.add.v4.f32` of 4 floats per thread (sm_90, global memory
+// only), so a corner row costs 8 vector reductions for C = 32 instead of 32
+// scalar atomics. A corner no cell gave a nonzero weight is not reduced, as
+// the scalar kernel skips it. What binds it then is the latency of each
+// thread's walk over its 32 cells more than the reductions (on the card, a
+// version without them was not much faster): the run's mask bits are read
+// up front by its 2^q threads together, so that no load waits for a mask
+// byte, the walk is unrolled by 2 so that the next cell's loads are in
+// flight, and the registers are held to 85 for 3 blocks (24 warps) an SM.
+// Rounding points are the Pallas kernels' (the cotangent, its product with
+// the dim2 weight, and the product of that with the fused weight, each
+// rounded before any sum); only the order of the f32 sums differs, and with
+// atomics it differs from run to run.
+// Forward and backward for other C (`lift_fwd_kernel`, `lift_bwd_kernel`,
+// the generic route): a thread takes one (cell, channel) pair at a time, so
+// for C = 32 a warp is one cell, each corner is one coalesced 128-byte read
+// (or one line of scalar atomics), and the output row one coalesced write.
+// The backward accumulates with atomics into a zeroed buffer, so its
+// summation order changes from run to run.
 //
 // Plain C interface (bound with ctypes). Each entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -322,6 +350,124 @@ __global__ void lift_bwd_kernel(const float* __restrict__ coords,
   }
 }
 
+// One vector reduction of 4 floats into global memory (sm_90).
+__device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
+  // no "memory" clobber: the kernel never reads dV, so loads may move past it
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst), "f"(v.x), "f"(v.y), "f"(v.z),
+               "f"(v.w));
+}
+
+__device__ __forceinline__ float4 add_product(float4 acc, float w, float4 e) {
+  // the product rounded before the sum, as the Pallas kernel's dot products and
+  // the scalar kernel's atomics take it
+  acc.x = __fadd_rn(acc.x, __fmul_rn(w, e.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(w, e.y));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(w, e.z));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(w, e.w));
+  return acc;
+}
+
+// The corner sums of a run of cells with one corner base, 4 channels of
+// each: sum t = k * 4 + i * 2 + j is dim2 plane k, dim0 plane i, dim1 plane j
+// of the base, whose plane indices are zi, xi, yi. A sum whose bit in
+// `touched` is clear holds zeros.
+struct Run {
+  float4 acc[8];
+  unsigned touched;
+  int xi[2], yi[2], zi[2];
+};
+
+// Reduce corner t of the run into dV (4 channels from channel 4g) and clear it.
+__device__ __forceinline__ void reduce_corner(Run& r, int t, float* db, int G, int C, int g) {
+  const int k = t >> 2, i = (t >> 1) & 1, j = t & 1;
+  red_add_v4(db + (((int64_t)r.xi[i] * G + r.yi[j]) * G + r.zi[k]) * C + 4 * g, r.acc[t]);
+  r.acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// K4 / K5 backward for C % 4 == 0: the forward's threads and walk (see
+// lift_fwd_vec4_kernel); the corner sums of the thread's run of cells with
+// one corner base kept in registers (Run) and reduced into dV, 4 channels at
+// a time, when the base changes and at the end. dv must be zero-filled and
+// gbar 16-byte aligned.
+template <bool BF16, bool WIN>
+__global__ void __launch_bounds__(kThreads, 3)  // at most 85 registers: 24 warps an SM
+lift_bwd_vec4_kernel(const float* __restrict__ coords, const uint8_t* __restrict__ mask,
+                     const float* __restrict__ gbar, float* __restrict__ dv, int G, int C, int N,
+                     int window, int q_log2) {
+  const int b = blockIdx.y;
+  const int cell0 = blockIdx.x * kTile;
+  const int ncell = min(kTile, N - cell0);
+  const float* cz = coords + ((int64_t)b * 3 + 0) * N + cell0;
+  const float* cy = coords + ((int64_t)b * 3 + 1) * N + cell0;
+  const float* cx = coords + ((int64_t)b * 3 + 2) * N + cell0;
+  const uint8_t* m = mask + (int64_t)b * N + cell0;
+  const int c4 = C >> 2;
+  const float4* g4 = reinterpret_cast<const float4*>(gbar + ((int64_t)b * N + cell0) * C);
+  float* db = dv + (int64_t)b * G * G * G * C;
+
+  int s = 0;
+  if (WIN) {
+    s = window_start(cy, m, ncell, G, window);
+    if (s < 0) return;
+  }
+  const int q = 1 << q_log2;
+  const int sub = threadIdx.x & (q - 1);
+  const int slot = threadIdx.x >> q_log2;
+  const int passes = (kTile / kThreads) << q_log2;  // at most 32
+  // The valid cells of the run as bits, read once by the cell's 2^q threads
+  // together, so that no load of the walk waits for a mask byte.
+  unsigned valid = 0;
+  for (int p = sub; p < passes; p += q) {
+    const int cell = slot * passes + p;
+    if (cell < ncell && m[cell]) valid |= 1u << p;
+  }
+  for (int o = 1; o < q; o <<= 1) valid |= __shfl_xor_sync(0xffffffffu, valid, o);
+  for (int g = sub; g < c4; g += q) {
+    Run run;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) run.acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    run.touched = 0;
+    run.xi[0] = run.xi[1] = run.yi[0] = run.yi[1] = run.zi[0] = run.zi[1] = -1;  // no base yet
+#pragma unroll 2
+    for (int p = 0; p < passes; ++p) {
+      if (!((valid >> p) & 1)) continue;  // reads no coordinate and no cotangent
+      const int cell = slot * passes + p;
+      const Cell c = cell_terms<BF16, WIN>(cx[cell], cy[cell], cz[cell], G, s, window);
+      if (c.x.i0 != run.xi[0] || c.y.i0 != run.yi[0] || c.z.i0 != run.zi[0]) {  // a new corner base
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          if ((run.touched >> t) & 1) reduce_corner(run, t, db, G, C, g);
+        run.touched = 0;
+        run.xi[0] = c.x.i0, run.xi[1] = c.x.i1, run.yi[0] = c.y.i0, run.yi[1] = c.y.i1;
+        run.zi[0] = c.z.i0, run.zi[1] = c.z.i1;
+      }
+      float4 gb = g4[(int64_t)cell * c4 + g];
+      gb = make_float4(rnd<BF16>(gb.x), rnd<BF16>(gb.y), rnd<BF16>(gb.z), rnd<BF16>(gb.w));
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float wz = c.wz[k];
+        if (wz == 0.f) continue;
+        const float4 e = make_float4(rnd<BF16>(wz * gb.x), rnd<BF16>(wz * gb.y), rnd<BF16>(wz * gb.z),
+                                     rnd<BF16>(wz * gb.w));
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float w = c.a[i][j];
+            if (w != 0.f) {
+              const int t = k * 4 + i * 2 + j;
+              run.acc[t] = add_product(run.acc[t], w, e);
+              run.touched |= 1u << t;
+            }
+          }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if ((run.touched >> t) & 1) reduce_corner(run, t, db, G, C, g);
+  }
+}
+
 // Launch KERNEL<BF16, WIN> for the run-time (bf16, window) pair.
 #define LIFT_DISPATCH(KERNEL, ...)                                                  \
   do {                                                                              \
@@ -330,6 +476,14 @@ __global__ void lift_bwd_kernel(const float* __restrict__ coords,
     else if (window > 0) KERNEL<false, true><<<grid, kThreads, 0, stream>>>(__VA_ARGS__);          \
     else KERNEL<false, false><<<grid, kThreads, 0, stream>>>(__VA_ARGS__);                         \
   } while (0)
+
+// log2 of the threads a cell takes in the vectorised kernels: the largest
+// power of two <= min(C/4, 8).
+int threads_per_cell_log2(int C) {
+  int q_log2 = 0;
+  while (q_log2 < 3 && (2 << q_log2) <= C / 4) ++q_log2;
+  return q_log2;
+}
 
 }  // namespace
 
@@ -350,10 +504,8 @@ extern "C" int trilinear_lift_fwd_vec4(const float* voxel, const float* coords,
                                        cudaStream_t stream) {
   if ((int64_t)B * N * C == 0) return 0;
   if (C % 4) return (int)cudaErrorInvalidValue;
-  int q_log2 = 0;  // threads per cell: the largest power of two <= min(C/4, 8)
-  while (q_log2 < 3 && (2 << q_log2) <= C / 4) ++q_log2;
   const dim3 grid((N + kTile - 1) / kTile, B);
-  LIFT_DISPATCH(lift_fwd_vec4_kernel, voxel, coords, mask, out, G, C, N, window, q_log2);
+  LIFT_DISPATCH(lift_fwd_vec4_kernel, voxel, coords, mask, out, G, C, N, window, threads_per_cell_log2(C));
   return (int)cudaGetLastError();
 }
 
@@ -365,5 +517,17 @@ extern "C" int trilinear_lift_bwd(const float* coords, const uint8_t* mask,
   if ((int64_t)B * N * C == 0) return 0;
   const dim3 grid((N + kTile - 1) / kTile, B);
   LIFT_DISPATCH(lift_bwd_kernel, coords, mask, gbar, dv, G, C, N, window);
+  return (int)cudaGetLastError();
+}
+
+// The same for C % 4 == 0 with gbar and dv 16-byte aligned; dv zero-filled.
+extern "C" int trilinear_lift_bwd_vec4(const float* coords, const uint8_t* mask,
+                                       const float* gbar, float* dv, int B, int G,
+                                       int C, int N, int bf16, int window,
+                                       cudaStream_t stream) {
+  if ((int64_t)B * N * C == 0) return 0;
+  if (C % 4) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kTile - 1) / kTile, B);
+  LIFT_DISPATCH(lift_bwd_vec4_kernel, coords, mask, gbar, dv, G, C, N, window, threads_per_cell_log2(C));
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 
 Port of :mod:`rgbd_gan_tpu.ops.trilinear_pallas`. On a CUDA tensor the lift
 runs the hand-written kernels in ``csrc/trilinear.cu`` (K3 forward, K4
-backward, and their windowed pair K5; the forward in its vectorised form,
-four channels a thread, where :func:`fwd_route` says so); on a CPU tensor it runs
+backward, and their windowed pair K5; each in its vectorised form, four
+channels a thread, where :func:`fwd_route` and :func:`bwd_route` say so); on
+a CPU tensor it runs
 :func:`trilinear_lift_reference` and :func:`trilinear_lift_reference_vjp`,
 the plain PyTorch versions of the same function. A CUDA tensor never falls
 back to the plain version.
@@ -38,9 +39,10 @@ TILE_N = 1024  # cells per window tile (``trilinear_pallas.TILE_N``)
 
 # Launches of each kernel since the last reset; the plain CPU path does not
 # count. The windowed pair counts apart from the full kernels, and the
-# vectorised forward (``*_vec4``) apart from the thread-per-(cell, channel)
-# one.
-launches = {"fwd": 0, "fwd_vec4": 0, "bwd": 0, "fwd_win": 0, "fwd_win_vec4": 0, "bwd_win": 0}
+# vectorised kernels (``*_vec4``) apart from the thread-per-(cell, channel)
+# ones.
+launches = {k: 0 for k in ("fwd", "fwd_vec4", "bwd", "bwd_vec4", "fwd_win", "fwd_win_vec4", "bwd_win",
+                           "bwd_win_vec4")}
 
 _lib = None
 
@@ -200,6 +202,17 @@ def fwd_route(c: int, voxel_ptr: int) -> str:
     return "vec4" if c % 4 == 0 and voxel_ptr % 16 == 0 else "generic"
 
 
+def bwd_route(c: int, gbar_ptr: int) -> str:
+    """The backward kernel that takes a call on the card: ``"vec4"``
+    (``lift_bwd_vec4_kernel``: each thread 4 channels of a run of cells,
+    float4 cotangent reads, the corner sums of cells with one corner base
+    merged in registers and reduced into dV 4 floats at a time) when C % 4
+    == 0 and the cotangent lies at a 16-byte-aligned address, else
+    ``"generic"`` (``lift_bwd_kernel``: a thread per (cell, channel), scalar
+    atomics). dV is a fresh allocation, aligned by construction."""
+    return "vec4" if c % 4 == 0 and gbar_ptr % 16 == 0 else "generic"
+
+
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/trilinear.cu``."""
     global _lib
@@ -212,6 +225,8 @@ def _library() -> ctypes.CDLL:
         lib.trilinear_lift_fwd_vec4.restype = i
         lib.trilinear_lift_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.trilinear_lift_bwd.restype = i
+        lib.trilinear_lift_bwd_vec4.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.trilinear_lift_bwd_vec4.restype = i
         _lib = lib
     return _lib
 
@@ -247,8 +262,10 @@ def _fwd(voxel, vox_coords, in_bounds, dtype=None, window=None, route=None) -> t
     return out
 
 
-def _bwd(voxel_shape, vox_coords, in_bounds, gbar, dtype=None, window=None) -> torch.Tensor:
-    """K4 (or windowed K5) on CUDA tensors, the plain version on CPU tensors."""
+def _bwd(voxel_shape, vox_coords, in_bounds, gbar, dtype=None, window=None, route=None) -> torch.Tensor:
+    """K4 (or windowed K5) on CUDA tensors, the plain version on CPU tensors.
+    ``route`` overrides :func:`bwd_route`'s choice, for measurements only:
+    ``"generic"`` also takes the calls that ``"vec4"`` takes."""
     dtype = _operand_dtype(dtype)
     if gbar.device.type == "cpu":
         return trilinear_lift_reference_vjp(voxel_shape, vox_coords, in_bounds, gbar, dtype, window)
@@ -260,16 +277,21 @@ def _bwd(voxel_shape, vox_coords, in_bounds, gbar, dtype=None, window=None) -> t
     if tuple(gbar.shape) != (b, n, c):
         raise ValueError(f"cotangent shape {tuple(gbar.shape)} does not match the output")
     vox_coords, mask, gbar = vox_coords.contiguous(), mask.contiguous(), gbar.contiguous()
+    chosen = bwd_route(c, gbar.data_ptr())
+    route = route or chosen
+    if route not in ("generic", "vec4") or (route == "vec4" and chosen != "vec4"):
+        raise ValueError(f"backward route {route!r} does not take C={c} with the cotangent at {gbar.data_ptr():#x}")
     dv = torch.zeros(b, g, g, g, c, dtype=torch.float32, device=gbar.device)
     lib = _library()
     with torch.cuda.device(gbar.device):
         stream = torch.cuda.current_stream(gbar.device).cuda_stream
-        err = lib.trilinear_lift_bwd(
+        entry = lib.trilinear_lift_bwd if route == "generic" else lib.trilinear_lift_bwd_vec4
+        err = entry(
             vox_coords.data_ptr(), mask.data_ptr(), gbar.data_ptr(), dv.data_ptr(),
             b, g, c, n, int(dtype == torch.bfloat16), int(window or 0), stream,
         )
-    raise_on(err, "trilinear_lift_bwd")
-    launches["bwd" if window is None else "bwd_win"] += 1
+    raise_on(err, f"trilinear_lift_bwd ({route})")
+    launches[("bwd" if window is None else "bwd_win") + ("_vec4" if route == "vec4" else "")] += 1
     return dv
 
 

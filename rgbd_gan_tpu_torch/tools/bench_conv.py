@@ -29,7 +29,10 @@ the FMA kernel (the route bfloat16 took before the tensor-core kernel, and
 still takes where the tensor-core kernel cannot) and the tensor-core kernel
 in turns (FMA, tensor cores, tensor cores, FMA), so that their ratio comes
 from one card, and gives how far each lies from the plain version beyond
-one bf16 ulp. It needs a CUDA device and fails without one.
+one bf16 ulp. Last, for each float32 shape, one line times the FMA kernel
+and cuDNN (TF32 off) in turns (kernel, cuDNN, cuDNN, kernel), with the
+TFLOP/s and share of bound of each. It needs a CUDA device and fails
+without one.
 """
 
 from __future__ import annotations
@@ -204,6 +207,39 @@ def compare_fma_and_tc(reps: int = 10) -> List[Dict[str, object]]:
     return records
 
 
+def compare_f32_with_library(reps: int = 10) -> List[Dict[str, object]]:
+    """For each shape in float32 (draws of the same laws as in
+    :func:`measure`): K6's FMA kernel and cuDNN conv + leaky ReLU (TF32 off)
+    timed in turns, kernel, cuDNN, cuDNN, kernel, ``reps`` calls each time;
+    ms of each is the mean of its two turns. Beside: the TFLOP/s and share
+    of bound of each, and the kernel's largest absolute error against the
+    plain version with ``max|ref|``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_conv measures only on a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    records = []
+    for shape in SHAPES:
+        x, k, bias = _draws(rng, shape, torch.float32)
+        calls = {"fma": lambda: conv.launch(x, k, bias, SLOPE, "fma"), "cudnn": library_call(x, k, bias)}
+        y = calls["fma"]()
+        ref = conv.conv3x3_bias_lrelu_reference(x, k, bias, SLOPE)
+        checks = {"max_abs_err": (y - ref).abs().max().item(), "max_abs_y": ref.abs().max().item()}
+        del y, ref
+        turns = [(which, cuda_event_ms(calls[which], reps)) for which in ("fma", "cudnn", "cudnn", "fma")]
+        ms = {which: sum(t for w_, t in turns if w_ == which) / 2 for which in calls}
+        rec = {"dtype": "float32", "shape": list(shape), **bound(shape, torch.float32)}
+        for which in calls:
+            rec[f"{which}_ms"] = ms[which]
+            rec[f"{which}_tflops"] = rec["flops"] / ms[which] / 1e9
+            rec[f"{which}_share_of_bound"] = rec["bound_ms"] / ms[which]
+        rec.update(fma_over_cudnn=ms["fma"] / ms["cudnn"], turns_ms=[t for _, t in turns], **checks)
+        records.append(rec)
+        del x, k, bias
+    return records
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=10, help="timed calls per function")
@@ -214,7 +250,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
-    for rec in measure(reps=args.reps) + compare_fma_and_tc(reps=args.reps):
+    for rec in measure(reps=args.reps) + compare_fma_and_tc(reps=args.reps) + compare_f32_with_library(args.reps):
         print(json.dumps(rec), flush=True)
     return 0
 

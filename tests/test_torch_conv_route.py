@@ -1,6 +1,6 @@
 """Which hand-written kernel takes a call on the card, decided in Python
 from dtype, shape and alignment alone (never on a failure): K6's
-``conv.route`` and the lift forward's ``trilinear.fwd_route``. Also that
+``conv.route`` and the lift's ``trilinear.fwd_route`` and ``bwd_route``. Also that
 K6's measuring launcher refuses a kernel its route would not pick, before
 it touches a device, and that the CPU path launches nothing. Imports no JAX.
 """
@@ -45,6 +45,22 @@ def test_conv_route(dtype, cin, cout, ptr, want):
 ])
 def test_lift_forward_route(c, ptr, want):
     assert trilinear.fwd_route(c, ptr) == want
+
+
+@pytest.mark.parametrize("c,ptr,want", [
+    (32, 0, "vec4"),  # every path's C
+    (4, 16, "vec4"),
+    (8, 32, "vec4"),
+    (12, 0, "vec4"),
+    (64, 256, "vec4"),
+    (6, 0, "generic"),
+    (3, 0, "generic"),
+    (32, 4, "generic"),  # the cotangent 4 bytes past an aligned address
+    (32, 8, "generic"),
+    (4, 12, "generic"),
+])
+def test_lift_backward_route(c, ptr, want):
+    assert trilinear.bwd_route(c, ptr) == want
 
 
 def test_the_cpu_path_launches_no_kernel():

@@ -6,8 +6,9 @@ here skips.
 This file imports no JAX, so it also runs on a machine without it:
 ``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
 
-K6 takes one of two kernels by ``conv.route``: each case checks which launch
-count moved. Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
+K6 takes one of two kernels by ``conv.route``, the lift's forward and
+backward one of two each by ``trilinear.fwd_route`` and ``bwd_route``: each
+case checks which launch count moved. Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
 d img, whose f32 atomics add in an order that changes from run to run. The
 lift: rtol/atol 1e-5 on the float32 forward (fused multiply-adds against
 separate ones), one bf16 ulp (rtol 2^-7) on the bf16 forward, and rtol 1e-5 /
@@ -283,6 +284,91 @@ def test_lift_forward_routes_match_plain_version(cuda, c, window, n, dtype):
             trilinear._fwd(voxel, coords, mask, dtype, window, route="vec4")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, 16], ids=["full", "win"])
+@pytest.mark.parametrize("c", [4, 8, 32])
+def test_lift_backward_vec4_matches_plain_version(cuda, c, window, dtype):
+    """The vectorised backward (4 channels a thread, corner sums of a run of
+    cells merged in registers, vector reductions) against the plain VJP,
+    at 1, 2 and 8 threads a cell; random coordinates, so runs of one corner
+    base are short, and a frustum at C = 32, where they are long."""
+    cases = [_lift_inputs(2, 16, c, 2048, seed=25, device=cuda)]
+    if c == 32:
+        voxel, vox, mask, cot = _frustum_inputs(2, 32, seed=26, device=cuda)
+        cases.append((voxel, vox, mask, cot))
+    for voxel, coords, mask, cot in cases:
+        assert trilinear.bwd_route(c, cot.data_ptr()) == "vec4"
+        key = "bwd_vec4" if window is None else "bwd_win_vec4"
+        before = dict(trilinear.launches)
+        got = trilinear._bwd(voxel.shape, coords, mask, cot, dtype, window)
+        torch.cuda.synchronize()
+        assert trilinear.launches == {**before, key: before[key] + 1}
+        want = trilinear.trilinear_lift_reference_vjp(voxel.shape, coords, mask, cot, dtype, window)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("window", [None, 4], ids=["full", "win"])
+def test_lift_backward_vec4_masked_cells_give_zero(cuda, window):
+    """A tile with no valid cell adds nothing; masked cells with NaN, inf
+    or far coordinates and a NaN cotangent read nothing and add nothing."""
+    voxel, coords, mask, cot = _lift_inputs(2, 8, 8, 3072, seed=27, device=cuda)
+    mask[:, 1024:2048] = False  # the middle tile of each batch item: all masked
+    coords[:, :, 1024:2048] = float("nan")
+    cot[:, 1024:2048] = float("nan")
+    coords[:, 0, :8] = float("inf")
+    coords[:, 1, 8:16] = -1e30
+    coords[:, 2, 16:24] = float("nan")
+    mask[:, :24] = False
+    cot[:, :24] = float("inf")
+    before = dict(trilinear.launches)
+    got = trilinear._bwd(voxel.shape, coords, mask, cot, None, window)
+    torch.cuda.synchronize()
+    key = "bwd_vec4" if window is None else "bwd_win_vec4"
+    assert trilinear.launches == {**before, key: before[key] + 1}
+    assert torch.isfinite(got).all()
+    want = trilinear.trilinear_lift_reference_vjp(voxel.shape, coords, mask, cot, None, window)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    all_masked = torch.zeros_like(mask)
+    got = trilinear._bwd(voxel.shape, coords, all_masked, cot, None, window)
+    torch.cuda.synchronize()
+    assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("window", [None, 4], ids=["full", "win"])
+def test_lift_backward_routes_generic_and_by_name(cuda, window):
+    """C = 6 takes the thread-per-(cell, channel) kernel; at C = 8 the
+    generic kernel taken by name agrees with the vectorised one, and a
+    cotangent 4 bytes past an aligned address goes to the generic kernel."""
+    key = "bwd" if window is None else "bwd_win"
+    voxel, coords, mask, cot = _lift_inputs(2, 8, 6, 2048, seed=28, device=cuda)
+    assert trilinear.bwd_route(6, cot.data_ptr()) == "generic"
+    before = dict(trilinear.launches)
+    got = trilinear._bwd(voxel.shape, coords, mask, cot, None, window)
+    torch.cuda.synchronize()
+    assert trilinear.launches == {**before, key: before[key] + 1}
+    torch.testing.assert_close(got, trilinear.trilinear_lift_reference_vjp(voxel.shape, coords, mask, cot, None,
+                                                                           window), rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="route"):
+        trilinear._bwd(voxel.shape, coords, mask, cot, None, window, route="vec4")
+    voxel, coords, mask, cot = _lift_inputs(2, 8, 8, 2048, seed=29, device=cuda)
+    before = dict(trilinear.launches)
+    generic = trilinear._bwd(voxel.shape, coords, mask, cot, torch.bfloat16, window, route="generic")
+    vec4 = trilinear._bwd(voxel.shape, coords, mask, cot, torch.bfloat16, window)
+    torch.cuda.synchronize()
+    assert trilinear.launches == {**before, key: before[key] + 1, key + "_vec4": before[key + "_vec4"] + 1}
+    torch.testing.assert_close(vec4, generic, rtol=1e-5, atol=1e-4)
+    flat = torch.empty(cot.numel() + 1, device=cuda)
+    shifted = flat[1:].view(cot.shape)
+    shifted.copy_(cot)
+    assert trilinear.bwd_route(8, shifted.data_ptr()) == "generic"
+    before = dict(trilinear.launches)
+    got = trilinear._bwd(voxel.shape, coords, mask, shifted, None, window)
+    torch.cuda.synchronize()
+    assert trilinear.launches == {**before, key: before[key] + 1}
+    torch.testing.assert_close(got, trilinear.trilinear_lift_reference_vjp(voxel.shape, coords, mask, cot, None,
+                                                                           window), rtol=1e-5, atol=1e-4)
+
+
 def test_lift_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     voxel, coords, mask, _ = _lift_inputs(2, 8, 3, 2048, seed=18, device=cuda)
     with pytest.raises(TypeError):
@@ -355,6 +441,50 @@ def test_conv_tensor_core_kernel_takes_a_sliced_batch(cuda):
     _assert_conv_matches(part, k, bias, "conv3x3_tc")
     torch.testing.assert_close(conv.conv3x3_bias_lrelu(part, k, bias), conv.conv3x3_bias_lrelu(x, k, bias)[1:],
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 8, 24, 24, 40),  # W 24 of two 16-wide tiles, Cin 24 in three chunks, Cout 40 of a 64-channel tile
+    (2, 16, 32, 64, 64),  # the 64-channel tile, 128 threads
+    (1, 8, 16, 6, 66),  # Cin 6: 4-byte halo copies; Cout 66: 4-byte weight copies, two channel tiles
+    (32, 64, 64, 128, 256),  # the benchmark's fourth shape
+], ids=["ragged", "tile64", "copies4", "bench_64x64_128_256"])
+def test_conv_fma_kernel_float32_matches_plain_version(cuda, shape):
+    x, k, bias = _conv_inputs(shape, torch.float32, seed=sum(shape) + 2, device=cuda)
+    assert conv.route(x.dtype, shape[3], shape[4], x.data_ptr()) == "fma"
+    _assert_conv_matches(x, k, bias, "conv3x3")
+
+
+def test_conv_fma_kernel_takes_unaligned_float32_operands(cuda):
+    """x and the weights 4 bytes past a 16-byte-aligned address: the 4-byte
+    copies, with the same values as the aligned call."""
+    x, k, bias = _conv_inputs((2, 8, 24, 24, 40), torch.float32, seed=30, device=cuda)
+    shifted = []
+    for t in (x, k):
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        s = flat[1:].view(t.shape)
+        s.copy_(t)
+        assert s.data_ptr() % 16 == 4
+        shifted.append(s)
+    _assert_conv_matches(shifted[0], shifted[1], bias, "conv3x3")
+    torch.testing.assert_close(conv.conv3x3_bias_lrelu(shifted[0], shifted[1], bias),
+                               conv.conv3x3_bias_lrelu(x, k, bias), rtol=0, atol=0)
+
+
+def test_conv_fma_kernel_bfloat16_within_one_ulp(cuda):
+    """The FMA kernel's bfloat16 instance (widened on load), taken by name
+    at Cin 24, and by the route where Cout is not a multiple of 8."""
+    for shape in ((2, 8, 24, 24, 40), (2, 8, 24, 24, 36)):
+        x, k, bias = _conv_inputs(shape, torch.bfloat16, seed=sum(shape) + 3, device=cuda)
+        before = dict(conv.launches)
+        got = conv.launch(x, k, bias, which="fma").float()
+        torch.cuda.synchronize()
+        assert conv.launches == {**before, "conv3x3": before["conv3x3"] + 1}
+        want = conv.conv3x3_bias_lrelu_reference(x, k, bias).float()
+        allowed = CONV_REL * want.abs().max() + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        assert bool(((got - want).abs() <= allowed).all())
+    assert conv.route(torch.bfloat16, 24, 36, x.data_ptr()) == "fma"
+    _assert_conv_matches(x, k, bias, "conv3x3")
 
 
 def test_conv_unaligned_bf16_input_goes_to_the_fma_kernel(cuda):
