@@ -6,13 +6,21 @@ Phases, each printing one line; any failure exits non-zero:
    builds the bilinear-gather, trilinear-lift and the two 3x3-conv kernel
    sources from `rgbd_gan_tpu_torch/csrc/`, one nvcc for each source, all at
    once; prints ptxas's registers, shared memory and spills of the FMA
-   conv and the vectorised lift backward, and fails unless the tensor-core
-   conv's SASS holds HGMMA (Hopper's warpgroup MMA) and the lift's a
-   vector reduction of 4 floats (`red.global.add.v4.f32`).
+   conv and the vectorised lift and bilinear backward kernels, and fails
+   unless the tensor-core conv's SASS holds HGMMA (Hopper's warpgroup MMA)
+   and the lift's and the bilinear gather's each a vector reduction of 4
+   floats (`red.global.add.v4.f32`).
 2. bilinear kernel parity at the StyleGAN step's shapes (B=32, H=W=128, C=4,
    N=16384) and at the DeepVoxels step's (B=10, H=W=64, N=4096), exact True
-   and False: K1 (forward) and K2 (backward) against the plain PyTorch
-   version, with both times.
+   and False, on uniform random points and on the points the 3D loss
+   gathers at (cameras from the yml's prior over a smooth depth map): K1
+   (forward) and both kernels of K2 (backward: the vectorised one and the
+   thread-per-point one) against the plain PyTorch version, with both times;
+   K2's two kernels in turns (generic, vectorised, vectorised, generic);
+   `F.grid_sample` and its backward (`aten.grid_sampler_2d_backward`) held
+   to the plain version and timed beside K1 and K2; the merge factor of the
+   vectorised K2's reductions on each set of points, as its lane rule
+   models it (counted in Python, not on the card).
 3. trilinear kernel parity at the DeepVoxels step's shapes (B=10, G=32,
    C=32, N=56*64*64 frustum cells under cameras from the yml's prior): K3,
    K4 and the windowed pair K5, float32 and bf16 operands, against the plain
@@ -37,7 +45,8 @@ Phases, each printing one line; any failure exits non-zero:
 7. the StyleGAN main path: the port's trainer at full width (ch 256, batch
    32, 128 px, the ffhq_stylegan_occlusion values) for 5 iterations through
    the CLI's run function, with a snapshot at the end; losses finite, and
-   each bilinear kernel launched once per iteration.
+   K1 and the vectorised K2 launched once per iteration, the thread-per-
+   point K2 never (phases 5 and 6 check the same of their one step).
 8. the DeepVoxels main path: the deepvoxels_shapenet_car values (ch 256,
    batch 10, 64 px, accumulative, focal gamma 2) for 5 iterations the same
    way; the windowed lift launched twice forward and once backward per
@@ -50,7 +59,8 @@ driven with every kernel's launch count set to 0 just before it and read
 just after. The line before the last is a JSON object describing
 each kernel (its time beside its bound, the plain version's time and, where
 one exists, a single PyTorch call's; K6's two kernels, FMA and tensor
-cores, one entry each); the last is
+cores, one entry each; K2 and the lift's with the old kernel's time in
+turns); the last is
 `{"ok": true, "device": {...}}`. There is no CPU path: without a card the
 script exits with an error.
 """
@@ -107,12 +117,14 @@ BILINEAR_SHAPES = {
     "deepvoxels": dict(B=10, H=64, W=64, C=4, N=64 * 64),
 }
 LIFT_SHAPE = dict(B=10, G=32, C=32, N=56 * 64 * 64)
+# the bilinear kernels' launch counts after one train step on the card
+BILINEAR_ONE_STEP = {"fwd": 1, "bwd": 0, "bwd_vec4": 1}
 # the lift's launch counts with nothing launched
 LIFT_NONE = {k: 0 for k in ("fwd", "fwd_vec4", "bwd", "bwd_vec4", "fwd_win", "fwd_win_vec4", "bwd_win",
                             "bwd_win_vec4")}
 # the kernel sources of `rgbd_gan_tpu_torch/csrc/`, one nvcc each, all at once
 SOURCES = ("bilinear", "trilinear", "conv3x3", "conv3x3_tc")
-NEW_KERNELS = ("conv3x3_kernel", "lift_bwd_vec4_kernel")  # ptxas figures printed for these
+NEW_KERNELS = ("conv3x3_kernel", "lift_bwd_vec4_kernel", "bilinear_bwd_vec4_kernel")  # ptxas figures printed
 # published peaks of one H100 SXM: HBM bytes/s and f32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -125,6 +137,11 @@ LIFT_BF16_RTOL, LIFT_BF16_ATOL = 2.0**-7, 1e-5  # at most one bf16 ulp where a s
 LIFT_DV_RTOL, LIFT_DV_ATOL = 1e-5, 1e-4  # atomics reorder the sums
 GRID_SAMPLE_ATOL = 1e-4  # another formula for the same weights
 GRID_SAMPLE_DV_RTOL, GRID_SAMPLE_DV_ATOL = 1e-4, 2e-4  # the same, summed over a corner's cells
+# F.grid_sample's backward against K2's plain version: du and dv only at
+# points this far (pixels) from a grid line, where the normalised
+# coordinate's rounding cannot pick the other one-sided derivative
+GRID_LINE_MARGIN = 1e-3
+LIBRARY_DUV_ATOL = 2e-4  # its weights from the normalised coordinate
 # K6 against its plain version: largest absolute error over max|y| in float32
 # (the taps' products summed in another order); in bfloat16 one bf16 ulp of
 # the larger value plus that float32 allowance, taken before the one rounding
@@ -145,7 +162,7 @@ MAX_SHARE_APART = 0.01
 def _reset_launches() -> None:
     from rgbd_gan_tpu_torch.ops import bilinear, conv, trilinear
 
-    bilinear.launches.update(fwd=0, bwd=0)
+    bilinear.reset_launches()
     trilinear.reset_launches()
     conv.reset_launches()
 
@@ -200,14 +217,15 @@ def phase_device(torch):
     log("ptxas", kernels=json.dumps(report))
     # the tensor-core kernel really runs on the tensor cores: Hopper's warpgroup MMA in its SASS
     hgmma = _count_in_sass(built["conv3x3_tc"][0], "HGMMA")
-    reductions = _opcodes_in_sass(built["trilinear"][0], ("RED", "ATOM"))
+    reductions = {name: _opcodes_in_sass(built[name][0], ("RED", "ATOM")) for name in ("trilinear", "bilinear")}
     log("sass", conv3x3_tc_HGMMA=hgmma, conv3x3_HGMMA=_count_in_sass(built["conv3x3"][0], "HGMMA"),
-        trilinear_reductions=json.dumps(reductions))
+        **{f"{name}_reductions": json.dumps(ops) for name, ops in reductions.items()})
     if hgmma == 0:
         raise AssertionError("conv3x3_tc.cu has no HGMMA instruction")
-    # the vectorised lift backward reduces 4 floats an instruction
-    if not any(op.startswith("RED") and "F32x4" in op for op in reductions):
-        raise AssertionError(f"trilinear.cu has no vector reduction of 4 floats: {reductions}")
+    # the vectorised lift backward and K2 reduce 4 floats an instruction
+    for name, ops in reductions.items():
+        if not any(op.startswith("RED") and "F32x4" in op for op in ops):
+            raise AssertionError(f"{name}.cu has no vector reduction of 4 floats: {ops}")
     print(smi, flush=True)
     return has_yaml
 
@@ -297,9 +315,54 @@ def _time_ms(torch, fn, reps: int = 20, attempts: int = 3):
     return None, wall
 
 
+def _warp_points(torch, path: str, gen):
+    """The points the 3D-consistency loss gathers at (``rotate_consistency_loss``):
+    B/2 camera pairs from the path's yml prior, both warp directions over a
+    smooth depth map, batched as the loss batches them; (u, v), each (B, H*W)."""
+    from rgbd_gan_tpu_torch.core.config import Config
+    from rgbd_gan_tpu_torch.geometry.camera import camera_matrices
+    from rgbd_gan_tpu_torch.geometry.prior import CameraParamPrior
+    from rgbd_gan_tpu_torch.geometry.warp import (
+        CLIP_Z_MAX, CLIP_Z_MIN, intrinsics, inv_warp, pixel_grid, relative_pose, warp,
+    )
+
+    b, h, w = (BILINEAR_SHAPES[path][k] for k in "BHW")
+    values = FFHQ_STYLEGAN_OCCLUSION if path == "stylegan" else DEEPVOXELS_SHAPENET_CAR
+    half = b // 2
+    mats = camera_matrices(CameraParamPrior(Config(values)).sample(gen, b, "cuda"))
+    ys = torch.linspace(0.0, 1.0, h, device="cuda")[:, None]
+    xs = torch.linspace(0.0, 1.0, w, device="cuda")[None, :]
+    phase = torch.rand(b, 2, 1, 1, generator=gen, device="cuda") * (2 * math.pi)
+    depth = values["depth_min"] + 0.5 + 0.25 * torch.sin(2 * math.pi * xs + phase[:, 0]) * torch.cos(
+        2 * math.pi * ys + phase[:, 1])
+    z = depth.reshape(b, 1, h * w)
+    k = intrinsics(w, device="cuda")
+    inv_k = torch.linalg.inv(k)
+    p = pixel_grid(w, device="cuda")
+    r, t = relative_pose(mats[:half], mats[half:])
+    zp = torch.cat([warp(k, inv_k, r, t, z[:half], p), inv_warp(k, inv_k, r.transpose(1, 2), t, z[half:], p)])
+    zc = torch.clamp(zp[..., 2], CLIP_Z_MIN, CLIP_Z_MAX)
+    return (zp[..., 1] / zc).contiguous(), (zp[..., 0] / zc).contiguous()
+
+
+def _device_or_wall(ms) -> float:
+    dev, wall = ms
+    return dev if dev is not None else wall
+
+
+def _in_turns(torch, calls: dict, order):
+    """Calls timed alternately in ``order``: the mean time of each over its
+    turns, and the list of turn times."""
+    turns = [(k, _device_or_wall(_time_ms(torch, calls[k]))) for k in order]
+    return {k: statistics.mean(t for k_, t in turns if k_ == k) for k in set(order)}, [round(t, 4) for _, t in turns]
+
+
 def phase_kernels(torch, path: str):
-    """K1 and K2 against the plain version at the shapes ``path`` gives them."""
+    """K1 and K2 against the plain version at the shapes ``path`` gives them,
+    on uniform random points and on the points the 3D loss gathers at; K2's
+    two kernels in turns; one PyTorch call for each beside them."""
     from rgbd_gan_tpu_torch.ops import bilinear
+    from rgbd_gan_tpu_torch.tools import bilinear_yardstick as yardstick
 
     b, h, w, c, n = (BILINEAR_SHAPES[path][k] for k in "BHWCN")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -310,57 +373,115 @@ def phase_kernels(torch, path: str):
     u[:, ::7] = torch.floor(u[:, ::7])
     v[:, ::5] = torch.floor(v[:, ::5])
     cot = torch.randn(b, n, c, generator=g, device="cuda")
+    points = {"random": (u, v), "warp": _warp_points(torch, path, g)}
+    if bilinear.bwd_route(c) != "vec4":
+        raise AssertionError("K2's inputs do not take the vectorised kernel")
     errs = {"fwd": 0.0, "bwd": 0.0}
-    times = {}
-    for exact in (True, False):
-        out = bilinear._fwd(img, u, v, exact)
-        torch.cuda.synchronize()
-        ref = bilinear.bilinear_gather_reference(img, u, v, exact)
-        torch.cuda.synchronize()
-        e_fwd = (out - ref).abs().max().item()
-        dimg, du, dv = bilinear._bwd(img, u, v, cot, exact)
-        torch.cuda.synchronize()
-        rdimg, rdu, rdv = bilinear.bilinear_gather_reference_vjp(img, u, v, cot, exact)
-        torch.cuda.synchronize()
-        e_dimg = (dimg - rdimg).abs().max().item()
-        dimg_ok = torch.allclose(dimg, rdimg, rtol=DIMG_RTOL, atol=DIMG_ATOL)
-        e_du = (du - rdu).abs().max().item()
-        e_dv = (dv - rdv).abs().max().item()
-        calls = {
-            "fwd": lambda: bilinear._fwd(img, u, v, exact),
-            "fwd_plain": lambda: bilinear.bilinear_gather_reference(img, u, v, exact),
-            "bwd": lambda: bilinear._bwd(img, u, v, cot, exact),
-            "bwd_plain": lambda: bilinear.bilinear_gather_reference_vjp(img, u, v, cot, exact),
-        }
-        ms = {k: _time_ms(torch, fn) for k, fn in calls.items()}
-        if exact:
-            # the main path runs exact mode; device time where the profiler has it
-            times = {k: (dev if dev is not None else wall) for k, (dev, wall) in ms.items()}
-        fields = {}
-        for k, (dev, wall) in ms.items():
-            fields[f"{k}_device_ms"] = "none" if dev is None else f"{dev:.4f}"
-            fields[f"{k}_wall_ms"] = f"{wall:.4f}"
-        log(
-            "kernels", shapes=path, B=b, H=h, W=w, N=n, exact=exact, fwd_max_abs_err=f"{e_fwd:.3e}", dimg_max_abs_err=f"{e_dimg:.3e}",
-            du_max_abs_err=f"{e_du:.3e}", dv_max_abs_err=f"{e_dv:.3e}", **fields,
-        )
-        if not (e_fwd <= FWD_ATOL and dimg_ok and e_du <= DUV_ATOL and e_dv <= DUV_ATOL):
-            raise AssertionError(f"kernel parity failed ({path} shapes, exact={exact})")
-        errs["fwd"] = max(errs["fwd"], e_fwd)
-        errs["bwd"] = max(errs["bwd"], e_dimg, e_du, e_dv)
-    # least time for the same work: every point of this run's data is read
-    # (u, v) and written (out, or du and dv); the image is read once, and the
-    # backward also reads the cotangent and writes d img
-    fwd_bytes = 4 * (img.numel() + u.numel() + v.numel() + b * n * c)
-    bwd_bytes = 4 * (2 * img.numel() + 2 * (u.numel() + v.numel()) + b * n * c)
-    in_bounds = int(((u >= 0) & (u < h - 1) & (v >= 0) & (v < w - 1)).sum())
-    bounds = {
-        "fwd": _bound(fwd_bytes, in_bounds * c * 2 * 4),  # exact mode: 2 corners, 2 weights
-        "bwd": _bound(bwd_bytes, in_bounds * c * 2 * 6),
-    }
-    log("kernel_bounds", shapes=path, fwd=json.dumps(bounds["fwd"]), bwd=json.dumps(bounds["bwd"]),
-        in_bounds_points=in_bounds, of=b * n)
-    return errs, times, bounds
+    times, bounds, at_warp = {}, {}, {}
+    for kind, (pu, pv) in points.items():
+        for exact in (True, False):
+            bound, in_bounds = _gather_bounds(torch, img, pu, pv, exact)
+            log("kernel_bounds", shapes=path, points=kind, exact=exact, fwd=json.dumps(bound["fwd"]),
+                bwd=json.dumps(bound["bwd"]), in_bounds_points=in_bounds, of=b * n)
+            out = bilinear._fwd(img, pu, pv, exact)
+            torch.cuda.synchronize()
+            ref = bilinear.bilinear_gather_reference(img, pu, pv, exact)
+            e_fwd = (out - ref).abs().max().item()
+            rdimg, rdu, rdv = bilinear.bilinear_gather_reference_vjp(img, pu, pv, cot, exact)
+            bwd_errs, bwd_ok = {}, True
+            for route in ("vec4", "generic"):
+                before = dict(bilinear.launches)
+                dimg, du, dv = bilinear._bwd(img, pu, pv, cot, exact, route=route)
+                torch.cuda.synchronize()
+                key = "bwd_vec4" if route == "vec4" else "bwd"
+                if bilinear.launches != {**before, key: before[key] + 1}:
+                    raise AssertionError(f"K2 route {route} launched {bilinear.launches} (before {before})")
+                bwd_errs[route] = {"dimg": (dimg - rdimg).abs().max().item(), "du": (du - rdu).abs().max().item(),
+                                   "dv": (dv - rdv).abs().max().item()}
+                bwd_ok &= (torch.allclose(dimg, rdimg, rtol=DIMG_RTOL, atol=DIMG_ATOL)
+                           and bwd_errs[route]["du"] <= DUV_ATOL and bwd_errs[route]["dv"] <= DUV_ATOL)
+                if exact and not torch.all(du == 0):
+                    bwd_ok = False
+            # one PyTorch call each: F.grid_sample and its backward at the same points
+            grid = yardstick.library_grid(pu, pv, h, w, exact)
+            lout = yardstick.gather(img, grid)
+            ldimg, ldu, ldv = yardstick.gather_vjp(img, grid, cot, exact)
+            mask = (pu >= 0) & (pu < h - 1) & (pv >= 0) & (pv < w - 1)
+            away_v, away_u = (mask & (x - torch.floor(x) > GRID_LINE_MARGIN) & (torch.ceil(x) - x > GRID_LINE_MARGIN)
+                              for x in (pv, pu))
+            lib_errs = {"fwd": (lout - ref).abs().max().item(), "dimg": (ldimg - rdimg).abs().max().item(),
+                        "dv": (ldv - rdv)[away_v].abs().max().item() if bool(away_v.any()) else 0.0,
+                        "du": 0.0 if exact else ((ldu - rdu)[away_u].abs().max().item() if bool(away_u.any()) else 0.0)}
+            lib_ok = (lib_errs["fwd"] <= GRID_SAMPLE_ATOL
+                      and torch.allclose(ldimg, rdimg, rtol=GRID_SAMPLE_DV_RTOL, atol=GRID_SAMPLE_DV_ATOL)
+                      and max(lib_errs["dv"], lib_errs["du"]) <= LIBRARY_DUV_ATOL)
+            del out, ref, rdimg, rdu, rdv, dimg, du, dv, lout, ldimg, ldu, ldv
+            calls = {
+                "fwd": lambda: bilinear._fwd(img, pu, pv, exact),
+                "fwd_plain": lambda: bilinear.bilinear_gather_reference(img, pu, pv, exact),
+                "fwd_library": lambda: yardstick.gather(img, grid),
+                "bwd": lambda: bilinear._bwd(img, pu, pv, cot, exact),
+                "bwd_plain": lambda: bilinear.bilinear_gather_reference_vjp(img, pu, pv, cot, exact),
+                "bwd_library": lambda: yardstick.grid_sampler_backward(img, grid, cot),
+            }
+            ms = {k: _time_ms(torch, fn) for k, fn in calls.items()}
+            # the thread-per-point backward (the first port's) and the vectorised one, in turns
+            routes = {r: (lambda r=r: bilinear._bwd(img, pu, pv, cot, exact, route=r)) for r in ("generic", "vec4")}
+            turns, turn_list = _in_turns(torch, routes, ("generic", "vec4", "vec4", "generic"))
+            merge = yardstick.modelled_merge_factor(pu, pv, h, w, exact)
+            fields = {}
+            for k, (dev, wall) in ms.items():
+                fields[f"{k}_device_ms"] = "none" if dev is None else f"{dev:.4f}"
+                fields[f"{k}_wall_ms"] = f"{wall:.4f}"
+            t = {k: _device_or_wall(v) for k, v in ms.items()}
+            log(
+                "kernels", shapes=path, points=kind, B=b, H=h, W=w, N=n, exact=exact,
+                fwd_max_abs_err=f"{e_fwd:.3e}", bwd_max_abs_err=json.dumps(bwd_errs),
+                library_max_abs_err=json.dumps(lib_errs), **fields,
+                bwd_turns_ms=json.dumps(turn_list), bwd_generic_over_vec4=f"{turns['generic'] / turns['vec4']:.3f}",
+                bwd_share_of_bound=f"{bound['bwd']['bound_ms'] / t['bwd']:.3f}",
+                fwd_over_library=f"{t['fwd'] / t['fwd_library']:.3f}",
+                bwd_over_library=f"{t['bwd'] / t['bwd_library']:.3f}",
+                modelled_corner_additions_per_reduction=f"{merge:.3f}",
+            )
+            if not (e_fwd <= FWD_ATOL and bwd_ok):
+                raise AssertionError(f"kernel parity failed ({path} shapes, {kind} points, exact={exact})")
+            if not lib_ok:
+                raise AssertionError(f"library calls disagree with the plain version ({path}, {kind}, exact={exact})")
+            errs["fwd"] = max(errs["fwd"], e_fwd)
+            errs["bwd"] = max(errs["bwd"], *bwd_errs["vec4"].values())
+            if exact:  # the main path runs exact mode
+                record = {**t, "bwd_generic": turns["generic"], "bwd_in_turns": turns["vec4"],
+                          "modelled_corner_additions_per_reduction": merge}
+                if kind == "random":
+                    times, bounds = record, bound
+                else:
+                    at_warp = {"ms": t["bwd"], "generic_ms": turns["generic"], "in_turns_ms": turns["vec4"],
+                               "library_ms": t["bwd_library"], "plain_ms": t["bwd_plain"],
+                               "bound_ms": bound["bwd"]["bound_ms"], "in_bounds_points": in_bounds,
+                               "modelled_corner_additions_per_reduction": merge}
+    return errs, times, bounds, at_warp
+
+
+def _gather_bounds(torch, img, u, v, exact: bool):
+    """K1's and K2's bounds on this run's points, and the count of points in
+    bounds. Bytes: every point's u and v are read and its output row (K1)
+    or its du and dv (K2) written; the image is read at the pixels that the
+    in-bounds points' corners touch, each once; K2 also reads the in-bounds
+    points' cotangent rows and writes the whole of d img. Operations, per
+    in-bounds point, channel and corner: 4 for K1, 6 for K2."""
+    b, h, w, c = img.shape
+    mask = (u >= 0) & (u < h - 1) & (v >= 0) & (v < w - 1)
+    in_bounds = int(mask.sum())
+    batch = torch.arange(b, device=u.device)[:, None].expand_as(u)
+    key = (batch[mask] * h + u[mask].to(torch.int64)) * w + v[mask].to(torch.int64)
+    corners = [key, key + 1] if exact else [key, key + 1, key + w, key + w + 1]
+    touched = int(torch.unique(torch.cat(corners)).numel())
+    coords = 4 * (u.numel() + v.numel())
+    fwd = _bound(4 * touched * c + coords + 4 * u.numel() * c, in_bounds * c * len(corners) * 4)
+    bwd = _bound(4 * touched * c + 4 * in_bounds * c + 4 * img.numel() + 2 * coords,
+                 in_bounds * c * len(corners) * 6)
+    return {"fwd": fwd, "bwd": bwd}, in_bounds
 
 
 def _bound(n_bytes: int, n_flops: int) -> dict:
@@ -629,6 +750,7 @@ def _small_config():
 def phase_step_parity(torch):
     from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
     from rgbd_gan_tpu_torch.models.generators import stylegan_make_hidden
+    from rgbd_gan_tpu_torch.ops import bilinear
     from rgbd_gan_tpu_torch.train.trainer import Trainer
 
     config = _small_config()
@@ -637,6 +759,7 @@ def phase_step_parity(torch):
     g = torch.Generator().manual_seed(1)
     z = torch.cat([stylegan_make_hidden(g, 2, config.ch)] * 2)
     losses = {}
+    bilinear.reset_launches()
     for device in ("cpu", "cuda"):
         trainer = Trainer(config, dataset=data, seed=0, device=device)  # same weights
         thetas6 = trainer.prior.sample(torch.Generator().manual_seed(2), 4, "cpu")
@@ -644,6 +767,9 @@ def phase_step_parity(torch):
         x = torch.from_numpy(data[:4].transpose(0, 2, 3, 1).copy()).to(device)
         _, metrics = trainer._step(spec)(trainer.state, x, 0.0, z=z, thetas6=thetas6)
         losses[device] = {k: float(v) for k, v in metrics.items() if "loss" in k}
+    # the card's step: K1 once and the vectorised K2 once; the CPU's launches none
+    if bilinear.launches != BILINEAR_ONE_STEP:
+        raise AssertionError(f"step parity: bilinear launches {bilinear.launches}")
     worst = 0.0
     for k, a in losses["cpu"].items():
         b = losses["cuda"][k]
@@ -651,14 +777,14 @@ def phase_step_parity(torch):
         if not (math.isfinite(b) and abs(a - b) <= STEP_ATOL + STEP_RTOL * abs(a)):
             raise AssertionError(f"step parity failed for {k}: cpu {a} vs cuda {b}")
     log("step_parity", cpu=json.dumps(losses["cpu"]), cuda=json.dumps(losses["cuda"]),
-        max_abs_diff=f"{worst:.3e}", rtol=STEP_RTOL, atol=STEP_ATOL)
+        max_abs_diff=f"{worst:.3e}", rtol=STEP_RTOL, atol=STEP_ATOL, launches=json.dumps(bilinear.launches))
 
 
 def phase_deepvoxels_step_parity(torch):
     from rgbd_gan_tpu_torch.core.config import Config
     from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
     from rgbd_gan_tpu_torch.models.deepvoxels import deepvoxels_make_hidden
-    from rgbd_gan_tpu_torch.ops import trilinear
+    from rgbd_gan_tpu_torch.ops import bilinear, trilinear
     from rgbd_gan_tpu_torch.train.trainer import Trainer
 
     data = synthetic_dataset(4, 64)
@@ -673,6 +799,7 @@ def phase_deepvoxels_step_parity(torch):
                              lift_mode="pallas_win_f32"))
         losses, modes, params = {}, {}, {}
         trilinear.reset_launches()
+        bilinear.reset_launches()
         for device in ("cpu", "cuda"):
             trainer = Trainer(config, dataset=data, seed=0, device=device)  # same weights
             thetas6 = trainer.prior.sample(torch.Generator().manual_seed(4), batch, "cpu")
@@ -687,6 +814,7 @@ def phase_deepvoxels_step_parity(torch):
         log_fields = dict(
             occlusion_type=occlusion_type, lift_modes=json.dumps(modes), cpu=json.dumps(losses["cpu"]),
             cuda=json.dumps(losses["cuda"]), launches=json.dumps(trilinear.launches),
+            bilinear_launches=json.dumps(bilinear.launches),
             share_of_generator_elements_apart=f"{apart:.5f}",
         )
         for k, a in losses["cpu"].items():
@@ -705,6 +833,8 @@ def phase_deepvoxels_step_parity(torch):
             raise AssertionError(f"deepvoxels step parity: {apart:.4f} of the generator's elements ended apart")
         if trilinear.launches != {**LIFT_NONE, "fwd_win_vec4": 2, "bwd_win_vec4": 1}:
             raise AssertionError(f"deepvoxels step parity: lift launches {trilinear.launches}")
+        if bilinear.launches != BILINEAR_ONE_STEP:
+            raise AssertionError(f"deepvoxels step parity: bilinear launches {bilinear.launches}")
 
 
 def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name: str):
@@ -768,8 +898,9 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
         log(phase, **fields)
         if trainer.state.iteration != iterations or not finite or len(rows) != iterations:
             raise AssertionError(f"{phase}: expected {iterations} iterations with finite losses")
-        if launches != {"fwd": iterations, "bwd": iterations}:
-            raise AssertionError(f"{phase}: bilinear kernel launches {launches} != {iterations} each")
+        # K1 and the vectorised K2 once per iteration, the thread-per-point K2 never
+        if launches != {k: n * iterations for k, n in BILINEAR_ONE_STEP.items()}:
+            raise AssertionError(f"{phase}: bilinear kernel launches {launches}, not {iterations} x {BILINEAR_ONE_STEP}")
         if any(counts["conv"].values()):
             raise AssertionError(f"{phase}: K6 is wired into no model, yet launched {counts['conv']}")
         if "Generator_latest.npz" not in out_files or "Discriminator_latest.npz" not in out_files:
@@ -825,7 +956,7 @@ def main() -> int:
 
     has_yaml = phase_device(torch)
     bilinear_parity = {path: phase_kernels(torch, path) for path in BILINEAR_SHAPES}
-    errs, times, bounds = bilinear_parity["stylegan"]
+    errs, times, bounds, at_warp = bilinear_parity["stylegan"]
     lift_errs, lift_times, lift_bounds = phase_lift_kernels(torch)
     conv_records, conv_launches, conv_compared, conv_versus_library = phase_conv(torch)
     phase_step_parity(torch)
@@ -844,17 +975,26 @@ def main() -> int:
     # the bilinear pair runs on every path: `launches` is the sum of the three
     # runs' counts, the other numbers are those at the StyleGAN shapes, and
     # the DeepVoxels shapes' stand beside them
-    dv_errs, dv_times, dv_bounds = bilinear_parity["deepvoxels"]
-    for key, line in (("fwd", 111), ("bwd", 130)):
-        kernels.append(dict(
+    dv_errs, dv_times, dv_bounds, dv_at_warp = bilinear_parity["deepvoxels"]
+    for key, line, counted in (("fwd", 111, "fwd"), ("bwd", 130, "bwd_vec4")):
+        e = dict(
             entry("bilinear_gather_" + key, bil, pallas % ("bilinear", line),
-                  sum(counts[key] for counts in by_path.values()),
-                  max(errs[key], dv_errs[key]), times[key], times[key + "_plain"], bounds[key]),
-            launches_by_path={path: counts[key] for path, counts in by_path.items()},
+                  sum(counts[counted] for counts in by_path.values()),
+                  max(errs[key], dv_errs[key]), times[key], times[key + "_plain"], bounds[key],
+                  times[key + "_library"]),
+            launches_by_path={path: counts[counted] for path, counts in by_path.items()},
             at_deepvoxels_shapes={"max_abs_err": dv_errs[key], "ms": dv_times[key],
-                                  "plain_ms": dv_times[key + "_plain"], "bound_ms": dv_bounds[key]["bound_ms"],
-                                  "bound_by": dv_bounds[key]["bound_by"]},
-        ))
+                                  "plain_ms": dv_times[key + "_plain"], "library_ms": dv_times[key + "_library"],
+                                  "bound_ms": dv_bounds[key]["bound_ms"], "bound_by": dv_bounds[key]["bound_by"]},
+        )
+        if key == "bwd":
+            # the vectorised kernel ran; the thread-per-point kernel, timed in turns
+            e.update(kernel="bilinear_bwd_vec4_kernel", generic_ms=times["bwd_generic"],
+                     in_turns_ms=times["bwd_in_turns"],
+                     modelled_corner_additions_per_reduction=times["modelled_corner_additions_per_reduction"],
+                     at_warp_points=at_warp)
+            e["at_deepvoxels_shapes"].update(generic_ms=dv_times["bwd_generic"], at_warp_points=dv_at_warp)
+        kernels.append(e)
     for key, line in (("fwd", 110), ("bwd", 141), ("fwd_win", 210), ("bwd_win", 240)):
         e = entry(
             "trilinear_lift_" + key, tri, pallas % ("trilinear", line), lift_launches[key], lift_errs[key],

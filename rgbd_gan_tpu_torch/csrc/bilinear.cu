@@ -18,11 +18,15 @@
 //
 // Bound: memory traffic. At the training shapes (B=32, H=W=128, C=4,
 // N=16384) one call touches about 8 MB of image and 0.5 M points, with
-// 4 random 16-byte corner reads per point. One thread per point; for C=4
-// each corner is one aligned float4 load and the output one float4 store.
-// K2 accumulates d img with f32 atomicAdd into a zeroed buffer, so its
-// summation order changes from run to run; du and dv are closed-form per
-// point and deterministic.
+// 4 random 16-byte corner reads per point. K1: one thread per point; for
+// C=4 each corner is one aligned float4 load and the output one float4
+// store. K2 adds into a zeroed d img with f32 reductions, so its summation
+// order changes from run to run; du and dv are closed-form per point and
+// deterministic. For C=4 (img, g and d img 16-byte aligned) K2 runs
+// bilinear_bwd_vec4_kernel: float4 cotangent and corner reads and one
+// 4-float vector reduction per corner, where a corner column that the next
+// point shares is handed to its lane in registers first; for any other C
+// bilinear_bwd_kernel, a thread per point with scalar atomics.
 //
 // Plain C interface (bound with ctypes). Each entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -166,6 +170,111 @@ __global__ void bilinear_bwd_kernel(const float* __restrict__ img,
   dv[i] = acc_v;
 }
 
+// ---------------------------------------------------------------- K2, C = 4
+
+// One vector reduction of 4 floats into global memory (sm_90).
+__device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
+  // no "memory" clobber: the kernel never reads d img, so loads may move past it
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst), "f"(v.x), "f"(v.y), "f"(v.z),
+               "f"(v.w));
+}
+
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__device__ __forceinline__ float4 scale(float w, float4 e) {
+  return make_float4(__fmul_rn(w, e.x), __fmul_rn(w, e.y), __fmul_rn(w, e.z), __fmul_rn(w, e.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+constexpr unsigned kAll = 0xffffffffu;  // every lane of a warp
+
+__device__ __forceinline__ float4 shfl_up4(float4 a) {
+  return make_float4(__shfl_up_sync(kAll, a.x, 1), __shfl_up_sync(kAll, a.y, 1), __shfl_up_sync(kAll, a.z, 1),
+                     __shfl_up_sync(kAll, a.w, 1));
+}
+
+// K2 for C == 4 with img, g and dimg 16-byte aligned; dimg zero-filled.
+// A thread per point, all loads float4 and coalesced. A point's addition to
+// each corner is wu * (wv * g), the Pallas kernel's rounding points (Av (x)
+// g, then Au^T times that), each product rounded before any sum. The 3D
+// loss gathers one point per source pixel in row-major order under a
+// camera warp close to the identity, so a point's right corner column
+// (v0 + 1, in each of its corner rows) is most often the next point's left
+// one. There the lane hands that column's sums to the next lane by a
+// shuffle, which adds them to its own before one vector reduction per
+// corner: along a row most corners are reduced once, not twice. The test
+// compares element offsets, batch base included, so 32 lanes that span two
+// images merge nothing wrongly. An out-of-bounds point reads no image or
+// cotangent memory, adds nothing and takes nothing.
+template <bool EXACT>
+__global__ void bilinear_bwd_vec4_kernel(const float* __restrict__ img, const float* __restrict__ u,
+                                         const float* __restrict__ v, const float* __restrict__ g,
+                                         float* __restrict__ dimg, float* __restrict__ du,
+                                         float* __restrict__ dv, int N, int H, int W, int total) {
+  constexpr int kRows = EXACT ? 1 : 2;  // corner rows of a point: u1 == u0 in exact mode
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < total;  // every lane takes part in the shuffles: none returns early
+  const Corners k = corners(live ? u[i] : -1.f, live ? v[i] : -1.f, H, W, 4,
+                            (int64_t)(live ? i / N : 0) * H * W * 4, EXACT);
+  const int row = 4 * W;  // elements from one image row to the next
+  int key = -1;           // element offset of the (u0, v0) corner; -1: out of bounds
+  float4 s[kRows][2];     // the point's additions: s[r][j] at key + r * row + 4 * j
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (k.in_bounds) {
+    key = (int)k.o00;
+    const float4 gi = load4(g + 4 * (int64_t)i);
+    const float4 p00 = load4(img + k.o00), p01 = load4(img + k.o01);
+    if (EXACT) {
+      // d u is identically 0: the two u corners coincide
+      const float wu = k.wu0 + k.wu1;
+      du[i] = 0.f;
+      dv[i] = gi.x * (wu * p01.x - wu * p00.x) + gi.y * (wu * p01.y - wu * p00.y) +
+              gi.z * (wu * p01.z - wu * p00.z) + gi.w * (wu * p01.w - wu * p00.w);
+    } else {
+      const float4 p10 = load4(img + k.o10), p11 = load4(img + k.o11);
+      du[i] = gi.x * (k.wv0 * (p10.x - p00.x) + k.wv1 * (p11.x - p01.x)) +
+              gi.y * (k.wv0 * (p10.y - p00.y) + k.wv1 * (p11.y - p01.y)) +
+              gi.z * (k.wv0 * (p10.z - p00.z) + k.wv1 * (p11.z - p01.z)) +
+              gi.w * (k.wv0 * (p10.w - p00.w) + k.wv1 * (p11.w - p01.w));
+      dv[i] = gi.x * ((k.wu0 * p01.x + k.wu1 * p11.x) - (k.wu0 * p00.x + k.wu1 * p10.x)) +
+              gi.y * ((k.wu0 * p01.y + k.wu1 * p11.y) - (k.wu0 * p00.y + k.wu1 * p10.y)) +
+              gi.z * ((k.wu0 * p01.z + k.wu1 * p11.z) - (k.wu0 * p00.z + k.wu1 * p10.z)) +
+              gi.w * ((k.wu0 * p01.w + k.wu1 * p11.w) - (k.wu0 * p00.w + k.wu1 * p10.w));
+    }
+    const float4 e0 = scale(k.wv0, gi), e1 = scale(k.wv1, gi);
+    const float wu[2] = {EXACT ? k.wu0 + k.wu1 : k.wu0, k.wu1};
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      s[r][0] = scale(wu[r], e0);
+      s[r][1] = scale(wu[r], e1);
+    }
+  } else if (live) {
+    du[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  // the previous lane's right column, where it is this lane's left one
+  const int prev_key = __shfl_up_sync(kAll, key, 1);
+  const int next_key = __shfl_down_sync(kAll, key, 1);
+  const bool take = lane > 0 && key >= 0 && prev_key >= 0 && prev_key + 4 == key;
+  const bool give = lane < 31 && key >= 0 && next_key == key + 4;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float4 from_prev = shfl_up4(s[r][1]);
+    if (take) s[r][0] = add4(s[r][0], from_prev);
+  }
+  if (key < 0) return;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    red_add_v4(dimg + key + r * row, s[r][0]);
+    if (!give) red_add_v4(dimg + key + r * row + 4, s[r][1]);
+  }
+}
+
 inline unsigned int blocks_for(int64_t total) {
   return (unsigned int)((total + kThreads - 1) / kThreads);
 }
@@ -208,5 +317,26 @@ extern "C" int bilinear_gather_bwd(const float* img, const float* u,
     bilinear_bwd_kernel<true><<<grid, kThreads, 0, s>>>(img, u, v, g, dimg, du, dv, N, H, W, C, total);
   else
     bilinear_bwd_kernel<false><<<grid, kThreads, 0, s>>>(img, u, v, g, dimg, du, dv, N, H, W, C, total);
+  return (int)cudaGetLastError();
+}
+
+// The same for C == 4 with img, g and dimg 16-byte aligned (the vectorised
+// kernel); dimg must be zeroed by the caller.
+extern "C" int bilinear_gather_bwd_vec4(const float* img, const float* u,
+                                        const float* v, const float* g,
+                                        float* dimg, float* du, float* dv, int B,
+                                        int H, int W, int C, int N, int exact,
+                                        void* stream) {
+  const int64_t total = (int64_t)B * N;
+  if (total == 0) return (int)cudaGetLastError();
+  if (C != 4 || ((uintptr_t)img | (uintptr_t)g | (uintptr_t)dimg) % 16 || total > (1LL << 31) - kThreads ||
+      (int64_t)B * H * W * C >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int grid = blocks_for(total);
+  if (exact)
+    bilinear_bwd_vec4_kernel<true><<<grid, kThreads, 0, s>>>(img, u, v, g, dimg, du, dv, N, H, W, (int)total);
+  else
+    bilinear_bwd_vec4_kernel<false><<<grid, kThreads, 0, s>>>(img, u, v, g, dimg, du, dv, N, H, W, (int)total);
   return (int)cudaGetLastError();
 }

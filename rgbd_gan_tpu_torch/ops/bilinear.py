@@ -2,9 +2,10 @@
 
 Port of :mod:`rgbd_gan_tpu.ops.bilinear_pallas`. On a CUDA tensor the
 gather runs the hand-written kernels in ``csrc/bilinear.cu`` (K1 forward,
-K2 backward); on a CPU tensor it runs :func:`bilinear_gather_reference`
-and :func:`bilinear_gather_reference_vjp`, the plain PyTorch versions of
-the same function. A CUDA tensor never falls back to the plain version.
+K2 backward, the latter on one of two kernels by :func:`bwd_route`); on a
+CPU tensor it runs :func:`bilinear_gather_reference` and
+:func:`bilinear_gather_reference_vjp`, the plain PyTorch versions of the
+same function. A CUDA tensor never falls back to the plain version.
 
 Semantics (those of ``bilinear_gather_pallas``): ``img`` (B, H, W, C),
 row coordinates ``u`` and column coordinates ``v`` (B, N) -> (B, N, C).
@@ -28,10 +29,16 @@ from torch.autograd.function import once_differentiable
 from ._build import load_library, raise_on
 
 # Launches of each kernel since the last reset; the plain CPU path does not
-# count. Reset with ``launches.update(fwd=0, bwd=0)``.
-launches = {"fwd": 0, "bwd": 0}
+# count. ``bwd`` counts the thread-per-point backward, ``bwd_vec4`` the
+# vectorised one.
+launches = {"fwd": 0, "bwd": 0, "bwd_vec4": 0}
 
 _lib = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +134,18 @@ def bilinear_gather_reference_vjp(
 # ---------------------------------------------------------------------------
 
 
+def bwd_route(c: int) -> str:
+    """The backward kernel that takes a call on the card: ``"vec4"``
+    (``bilinear_bwd_vec4_kernel``: a thread per point, float4 cotangent and
+    corner reads, a corner column shared with the next point handed to its
+    lane in registers, one 4-float reduction per corner) when C == 4, else
+    ``"generic"`` (``bilinear_bwd_kernel``: a thread per point, scalar
+    atomics). For C == 4 the wrapper takes only a 16-byte-aligned image and
+    cotangent (the autograd backward copies a cotangent that is not); d img
+    is a fresh allocation, aligned by construction."""
+    return "vec4" if c == 4 else "generic"
+
+
 def _library() -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/bilinear.cu``."""
     global _lib
@@ -137,6 +156,8 @@ def _library() -> ctypes.CDLL:
         lib.bilinear_gather_fwd.restype = i
         lib.bilinear_gather_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bilinear_gather_bwd.restype = i
+        lib.bilinear_gather_bwd_vec4.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.bilinear_gather_bwd_vec4.restype = i
         _lib = lib
     return _lib
 
@@ -158,11 +179,19 @@ def _check(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, g=None) -> None:
         raise ValueError("tensor too large for the kernels' 32-bit sizes")
 
 
-def _check_cuda(img: torch.Tensor, *others: torch.Tensor) -> None:
-    if any(not t.is_contiguous() for t in (img,) + others):
+def _check_cuda(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, g=None) -> None:
+    vectors = (img,) + ((g,) if g is not None else ())
+    if any(not t.is_contiguous() for t in vectors + (u, v)):
         raise ValueError("the bilinear kernels take contiguous tensors")
-    if img.shape[3] == 4 and img.data_ptr() % 16:
-        raise ValueError("for C=4 the image must be 16-byte aligned (float4 loads)")
+    if img.shape[3] == 4 and any(t.data_ptr() % 16 for t in vectors):
+        raise ValueError("for C=4 the image and the cotangent must be 16-byte aligned (float4 loads)")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte-aligned address: itself where it is,
+    else a copy (a fresh allocation is aligned)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _fwd(img, u, v, exact: bool) -> torch.Tensor:
@@ -187,8 +216,16 @@ def _fwd(img, u, v, exact: bool) -> torch.Tensor:
     return out
 
 
-def _bwd(img, u, v, g, exact: bool):
+def _bwd(img, u, v, g, exact: bool, route=None):
+    """K2 on CUDA tensors, the plain version on CPU tensors. ``route``
+    overrides :func:`bwd_route`'s choice, for measurements only:
+    ``"generic"`` also takes the calls that ``"vec4"`` takes; a route that
+    cannot take the call raises before any device is touched."""
     _check(img, u, v, g)
+    chosen = bwd_route(img.shape[3])
+    if route not in (None, "generic", "vec4") or (route == "vec4" and chosen != "vec4"):
+        raise ValueError(f"backward route {route!r} does not take C={img.shape[3]}")
+    route = route or chosen
     if img.device.type == "cpu":
         return bilinear_gather_reference_vjp(img, u, v, g, exact)
     if img.device.type != "cuda":
@@ -200,15 +237,16 @@ def _bwd(img, u, v, g, exact: bool):
     du = torch.empty_like(u)
     dv = torch.empty_like(v)
     lib = _library()
+    entry = lib.bilinear_gather_bwd if route == "generic" else lib.bilinear_gather_bwd_vec4
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.bilinear_gather_bwd(
+        err = entry(
             img.data_ptr(), u.data_ptr(), v.data_ptr(), g.data_ptr(),
             dimg.data_ptr(), du.data_ptr(), dv.data_ptr(),
             b, h, w, c, n, int(exact), stream,
         )
-    raise_on(err, "bilinear_gather_bwd")
-    launches["bwd"] += 1
+    raise_on(err, f"bilinear_gather_bwd ({route})")
+    launches["bwd" if route == "generic" else "bwd_vec4"] += 1
     return dimg, du, dv
 
 
@@ -223,7 +261,7 @@ class _BilinearGather(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         img, u, v = ctx.saved_tensors
-        dimg, du, dv = _bwd(img, u, v, g.contiguous(), ctx.exact)
+        dimg, du, dv = _bwd(img, u, v, _aligned(g), ctx.exact)
         return dimg, du, dv, None
 
 

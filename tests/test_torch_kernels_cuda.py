@@ -7,8 +7,8 @@ This file imports no JAX, so it also runs on a machine without it:
 ``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
 
 K6 takes one of two kernels by ``conv.route``, the lift's forward and
-backward one of two each by ``trilinear.fwd_route`` and ``bwd_route``: each
-case checks which launch count moved. Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
+backward one of two each by ``trilinear.fwd_route`` and ``bwd_route``, K2 one
+of two by ``bilinear.bwd_route``: each case checks which launch count moved. Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
 d img, whose f32 atomics add in an order that changes from run to run. The
 lift: rtol/atol 1e-5 on the float32 forward (fused multiply-adds against
 separate ones), one bf16 ulp (rtol 2^-7) on the bf16 forward, and rtol 1e-5 /
@@ -89,7 +89,8 @@ def test_autograd_counts_one_launch_each_and_matches_cpu(cuda):
     ti = img.clone().requires_grad_(True)
     tu, tv = u.clone().requires_grad_(True), v.clone().requires_grad_(True)
     bilinear.bilinear_gather(ti, tu, tv).backward(g)
-    assert bilinear.launches == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    # C = 4 with aligned tensors: the vectorised backward
+    assert bilinear.launches == {**before, "fwd": before["fwd"] + 1, "bwd_vec4": before["bwd_vec4"] + 1}
     ci, cu, cv = (t.detach().cpu().requires_grad_(True) for t in (img, u, v))
     bilinear.bilinear_gather(ci, cu, cv).backward(g.cpu())
     for a, b_ in ((ti, ci), (tu, cu), (tv, cv)):
@@ -103,11 +104,119 @@ def test_bilinear_sample_every_mode_uses_the_kernels(cuda):
                       device=cuda)
     ref, ref_mask = bilinear_sample(img.cpu(), zp.cpu(), gather_mode="xla")
     for mode in ("xla", "onehot", "hybrid", "pallas"):
-        before = bilinear.launches["fwd"]
-        out, mask = bilinear_sample(img, zp, gather_mode=mode)
-        assert bilinear.launches["fwd"] == before + 1
-        torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=ATOL)
+        before = dict(bilinear.launches)
+        ti = img.clone().requires_grad_(True)
+        out, mask = bilinear_sample(ti, zp, gather_mode=mode)
+        out.sum().backward()
+        assert bilinear.launches == {**before, "fwd": before["fwd"] + 1, "bwd_vec4": before["bwd_vec4"] + 1}
+        torch.testing.assert_close(out.detach().cpu(), ref, rtol=0, atol=ATOL)
         torch.testing.assert_close(mask.cpu(), ref_mask, rtol=0, atol=0)
+
+
+def _warp_inputs(b, h, w, c, n, seed, device):
+    """Points as the 3D loss gathers them: one per source pixel in row-major
+    order, ceil(n / w) rows of w cut to n, under a smooth warp close to the
+    identity (some out of bounds at the edges, some on integer
+    coordinates)."""
+    rng = np.random.RandomState(seed)
+    r, col = np.meshgrid(np.arange(-(-n // w), dtype="f"), np.arange(w, dtype="f"), indexing="ij")
+    ph = rng.rand(b, 2, 1, 1).astype("f") * 6.0
+    u = r * 1.02 - 0.1 + 0.3 * np.sin(col / 5.0 + ph[:, 0])
+    v = col * 0.97 + 0.2 + 0.3 * np.cos(r / 7.0 + ph[:, 1])
+    u, v = u.reshape(b, -1)[:, :n].astype("f"), v.reshape(b, -1)[:, :n].astype("f")
+    u[:, ::13] = np.floor(u[:, ::13])
+    v[:, ::11] = np.floor(v[:, ::11])
+    img = rng.rand(b, h, w, c).astype("f")
+    g = rng.randn(b, n, c).astype("f")
+    return [torch.tensor(np.ascontiguousarray(a), device=device) for a in (img, u, v, g)]
+
+
+def _assert_bwd_matches(img, u, v, g, exact, route_key, route=None):
+    before = dict(bilinear.launches)
+    dimg, du, dv = bilinear._bwd(img, u, v, g, exact, route=route)
+    torch.cuda.synchronize()
+    assert bilinear.launches == {**before, route_key: before[route_key] + 1}
+    want = bilinear.bilinear_gather_reference_vjp(img, u, v, g, exact)
+    torch.testing.assert_close(dimg, want[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(du, want[1], rtol=0, atol=ATOL)
+    torch.testing.assert_close(dv, want[2], rtol=0, atol=ATOL)
+    if exact:
+        assert torch.all(du == 0)
+    return dimg, du, dv
+
+
+@pytest.mark.parametrize("points", ["random", "warp"])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 4, 300), (2, 16, 24, 4, 257), (32, 128, 128, 4, 16384)])
+def test_backward_vec4_matches_plain_version(cuda, shape, exact, points):
+    c = shape[3]
+    # n = 257 and 300 are no multiple of a run: runs cross from one image into the next
+    img, u, v, g = (_inputs if points == "random" else _warp_inputs)(*shape, seed=8, device=cuda)
+    assert bilinear.bwd_route(c) == "vec4"
+    _assert_bwd_matches(img, u, v, g, exact, "bwd_vec4")
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_backward_vec4_masked_points_inside_a_run(cuda, exact):
+    img, u, v, g = _warp_inputs(2, 16, 16, 4, 256, seed=9, device=cuda)
+    n = u.shape[1]
+    # masked points at every position of a run, NaN and inf among them, with
+    # a NaN cotangent that the kernel must not read
+    for pos, bad in ((1, float("nan")), (2, float("inf")), (5, -3.0), (11, 40.0)):
+        u[:, pos::17] = bad
+    v[:, 7::19] = float("nan")
+    masked = ~((u >= 0) & (u < 15) & (v >= 0) & (v < 15))
+    g[masked] = float("nan")
+    assert int(masked.sum()) > n // 4
+    dimg, du, dv = _assert_bwd_matches(img, u, v, g, exact, "bwd_vec4")
+    assert torch.isfinite(dimg).all()
+    assert torch.all(du[masked] == 0) and torch.all(dv[masked] == 0)
+
+
+def test_backward_vec4_nan_and_inf_points_read_nothing(cuda):
+    img, u, v, g = _inputs(2, 16, 16, 4, 300, seed=4, device=cuda)
+    u[:, :8] = float("nan")
+    v[:, 8:16] = float("inf")
+    u[:, 16:24] = -1e30
+    before = bilinear.launches["bwd_vec4"]
+    dimg, du, dv = bilinear._bwd(img, u, v, g, True)
+    torch.cuda.synchronize()
+    assert bilinear.launches["bwd_vec4"] == before + 1
+    assert torch.all(du[:, :24] == 0) and torch.all(dv[:, :24] == 0)
+    assert torch.isfinite(dimg).all()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_backward_generic_route_for_three_channels_or_by_name(cuda, exact):
+    img, u, v, g = _inputs(2, 16, 24, 3, 257, seed=10, device=cuda)
+    assert bilinear.bwd_route(3) == "generic"
+    _assert_bwd_matches(img, u, v, g, exact, "bwd")
+    with pytest.raises(ValueError, match="does not take"):
+        bilinear._bwd(img, u, v, g, exact, route="vec4")
+    # the old kernel by name, on a call the vectorised one takes
+    img, u, v, g = _inputs(2, 16, 24, 4, 257, seed=11, device=cuda)
+    _assert_bwd_matches(img, u, v, g, exact, "bwd", route="generic")
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_backward_copies_an_unaligned_cotangent_onto_the_vectorised_kernel(cuda, exact):
+    img, u, v, g = _inputs(2, 16, 24, 4, 257, seed=11, device=cuda)
+    shifted = torch.empty(g.numel() + 1, device=cuda)[1:].view(g.shape)
+    shifted.copy_(g)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    # the wrapper refuses it on either route; the autograd backward copies it
+    for route in (None, "generic"):
+        with pytest.raises(ValueError, match="aligned"):
+            bilinear._bwd(img, u, v, shifted, exact, route=route)
+    leaves = [t.clone().requires_grad_(True) for t in (img, u, v)]
+    before = dict(bilinear.launches)
+    bilinear.bilinear_gather(*leaves, exact=exact).backward(shifted)
+    torch.cuda.synchronize()
+    assert bilinear.launches == {**before, "fwd": before["fwd"] + 1, "bwd_vec4": before["bwd_vec4"] + 1}
+    want = bilinear.bilinear_gather_reference_vjp(img, u, v, g, exact)
+    torch.testing.assert_close(leaves[0].grad, want[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(leaves[1].grad, want[1], rtol=0, atol=ATOL)
+    torch.testing.assert_close(leaves[2].grad, want[2], rtol=0, atol=ATOL)
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
