@@ -53,10 +53,26 @@ Phases, each printing one line; any failure exits non-zero:
    iteration, each on its vectorised kernel, the bilinear kernels once each.
 9. the same configuration with `lift_mode: pallas_f32` for 2 iterations, so
    that the full-width lift kernels run on a path too (vectorised only).
+10. bf16 step parity, the twin of phase 5 with `mixed16: True` and
+   `r1_interval: 2`: two steps (R1, then none) from the same weights and
+   draws on the CPU (plain gather) and on the card (kernels), losses held to
+   `STEP_BF16_ATOL`; beside it the distance between the card's bf16 steps
+   and its float32 steps on the same draws.
+11. the StyleGAN main path in bf16 (`mixed16: True`, R1 every step), as
+   phase 7; then with `r1_interval: 16` for 18 iterations, so that two
+   steps take the penalty: their times and the median of the plain steps
+   are printed apart.
+12. the DeepVoxels main path in bf16, as phase 8 (the windowed lift 10
+   forward, 5 backward).
+   In phases 11 and 12 forward pre-hooks check that a G trunk conv, a D
+   conv, a 3D conv of the voxel generator and a refiner conv see bf16
+   inputs, and the toRGBD head and `lift_frustum`'s voxel input float32: a
+   run that trains in float32 fails.
 
-Each path (the benchmark of phase 4 and the three runs of phases 7-9) is
-driven with every kernel's launch count set to 0 just before it and read
-just after. The line before the last is a JSON object describing
+Each path (the benchmark of phase 4 and the six runs of phases 7-9, 11 and
+12) is driven with every kernel's launch count set to 0 just before it and
+read just after; the script's wall time is printed before the kernels
+line. The line before the last is a JSON object describing
 each kernel (its time beside its bound, the plain version's time and, where
 one exists, a single PyTorch call's; K6's two kernels, FMA and tensor
 cores, one entry each; K2 and the lift's with the old kernel's time in
@@ -157,6 +173,11 @@ CONV_REPS = 10
 # with the softmax net.
 DIS_AFTER_UPDATE_ATOL = 2e-2
 MAX_SHARE_APART = 0.01
+# phase 10: the bf16 trunk on the CPU (oneDNN) and on the card (cuDNN) sums in
+# other orders and rounds each activation to 8 bits of mantissa, so the two
+# steps' losses are held loosely. Read on an H100 80GB HBM3: 1.552e-03 (the
+# card's bf16 and float32 steps: 4.233e-02 apart)
+STEP_BF16_ATOL = 3e-3
 
 
 def _reset_launches() -> None:
@@ -837,15 +858,56 @@ def phase_deepvoxels_step_parity(torch):
             raise AssertionError(f"deepvoxels step parity: bilinear launches {bilinear.launches}")
 
 
-def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name: str):
+def _watch_dtypes(sites: dict):
+    """Forward pre-hooks on the trainer's modules named in ``sites`` (``gen.``
+    or ``dis.`` and the module's path, or ``lift_frustum`` for the voxel grid
+    the lift gets) recording the dtypes of their first input; returns the
+    record and a function that takes the hooks out."""
+    from rgbd_gan_tpu_torch.models import deepvoxels
+    from rgbd_gan_tpu_torch.train import trainer as trainer_module
+
+    seen = {name: set() for name in sites}
+    setup_generator, setup_discriminator = trainer_module.setup_generator, trainer_module.setup_discriminator
+    lift_frustum = deepvoxels.lift_frustum
+
+    def hooked(model, prefix):
+        for name in sites:
+            if name.startswith(prefix):
+                model.get_submodule(name[len(prefix):]).register_forward_pre_hook(
+                    lambda module, args, name=name: seen[name].add(args[0].dtype))
+        return model
+
+    def watched_lift(voxel, *args, **kwargs):
+        seen["lift_frustum"].add(voxel.dtype)
+        return lift_frustum(voxel, *args, **kwargs)
+
+    def hooked_generator(*args, **kwargs):
+        gen, make_hidden = setup_generator(*args, **kwargs)
+        return hooked(gen, "gen."), make_hidden
+
+    trainer_module.setup_generator = hooked_generator
+    trainer_module.setup_discriminator = lambda *args, **kwargs: hooked(setup_discriminator(*args, **kwargs), "dis.")
+    if "lift_frustum" in sites:
+        deepvoxels.lift_frustum = watched_lift
+
+    def undo():
+        trainer_module.setup_generator, trainer_module.setup_discriminator = setup_generator, setup_discriminator
+        deepvoxels.lift_frustum = lift_frustum
+
+    return seen, undo
+
+
+def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name: str, watch=None):
     """Run ``values`` through the CLI's run function on 64 synthetic images
     with every kernel's launch count zeroed just before and read just after;
     returns the launch counts of the bilinear and the trilinear kernels
-    (K6, wired into no model, must not launch)."""
+    (K6, wired into no model, must not launch). ``watch`` maps sites (see
+    :func:`_watch_dtypes`) to the one dtype each must see."""
     from rgbd_gan_tpu_torch.cli import train as cli
     from rgbd_gan_tpu_torch.core.config import Config
     from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
 
+    seen, undo = _watch_dtypes(watch or {})
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.dirname(os.path.abspath(__file__)))
     try:
         data_dir = os.path.join(work, "data")
@@ -893,8 +955,16 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
             step_ms=json.dumps([round(t, 3) for t in step_ms]), peak_mem_gib=f"{peak_gib:.3f}",
             last=json.dumps(rows[-1]), files=json.dumps(out_files),
         )
-        if name != "ffhq_stylegan_occlusion":
+        if values["generator_architecture"] == "deepvoxels":
             fields.update(lift_launches=json.dumps(lift_launches), lift_mode=trainer.state.gen.lift_mode)
+        if values.get("r1_interval", 1) > 1:
+            # step_ms[j] is row j + 1's step: the penalty's steps apart from the plain ones
+            r1 = [t for t, row in zip(step_ms, rows[1:]) if row["dis/loss_gp"] > 0]
+            plain = [t for t, row in zip(step_ms, rows[1:]) if row["dis/loss_gp"] == 0]
+            fields.update(r1_step_ms=json.dumps([round(t, 3) for t in r1]),
+                          plain_step_median_ms=f"{statistics.median(plain):.3f}", plain_steps=len(plain))
+        if watch:
+            fields.update(dtypes=json.dumps({k: sorted(str(d) for d in v) for k, v in seen.items()}))
         log(phase, **fields)
         if trainer.state.iteration != iterations or not finite or len(rows) != iterations:
             raise AssertionError(f"{phase}: expected {iterations} iterations with finite losses")
@@ -905,8 +975,12 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
             raise AssertionError(f"{phase}: K6 is wired into no model, yet launched {counts['conv']}")
         if "Generator_latest.npz" not in out_files or "Discriminator_latest.npz" not in out_files:
             raise AssertionError(f"{phase}: snapshot missing")
+        wrong = {k: v for k, v in seen.items() if v != {watch[k]}}
+        if wrong:
+            raise AssertionError(f"{phase}: inputs not in the expected dtype: {wrong} (expected {watch})")
         return launches, lift_launches, out_files
     finally:
+        undo()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -916,6 +990,75 @@ def phase_main_path(torch, has_yaml: bool):
     if any(lift_launches.values()):
         raise AssertionError(f"main path: the StyleGAN step launched the lift {lift_launches}")
     return launches
+
+
+def phase_step_parity_bf16(torch):
+    """Phase 5's step with ``mixed16`` and ``r1_interval: 2``, two steps."""
+    from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
+    from rgbd_gan_tpu_torch.models.generators import stylegan_make_hidden
+    from rgbd_gan_tpu_torch.ops import bilinear
+    from rgbd_gan_tpu_torch.train.trainer import Trainer
+
+    data = synthetic_dataset(8, 32)
+    g = torch.Generator().manual_seed(1)
+    zs = [torch.cat([stylegan_make_hidden(g, 2, 32)] * 2) for _ in range(2)]
+    losses, launches = {}, {}
+    for run, device, mixed16 in (("cpu", "cpu", True), ("cuda", "cuda", True), ("cuda_f32", "cuda", False)):
+        config = _small_config()
+        config.mixed16, config.r1_interval = mixed16, 2
+        trainer = Trainer(config, dataset=data, seed=0, device=device)  # same weights
+        bilinear.reset_launches()
+        losses[run] = []
+        for it in range(2):
+            thetas6 = trainer.prior.sample(torch.Generator().manual_seed(2 + it), 4, "cpu")
+            spec = trainer._spec_for(it, 6)  # 32 px, rotate and occlusion on
+            x = torch.from_numpy(data[4 * it:4 * it + 4].transpose(0, 2, 3, 1).copy()).to(device)
+            _, metrics = trainer._step(spec)(trainer.state, x, 0.0, z=zs[it], thetas6=thetas6)
+            losses[run].append({k: float(v) for k, v in metrics.items() if "loss" in k})
+        launches[run] = dict(bilinear.launches)
+
+    def worst(a, b):
+        return max(abs(x[k] - y[k]) for x, y in zip(losses[a], losses[b]) for k in x)
+
+    reading, bf16_vs_f32 = worst("cpu", "cuda"), worst("cuda", "cuda_f32")
+    log("step_parity_bf16", cpu=json.dumps(losses["cpu"]), cuda=json.dumps(losses["cuda"]),
+        cuda_f32=json.dumps(losses["cuda_f32"]), max_abs_diff=f"{reading:.3e}", atol=STEP_BF16_ATOL,
+        card_bf16_vs_card_f32_max_abs_diff=f"{bf16_vs_f32:.3e}", launches=json.dumps(launches["cuda"]))
+    if launches["cuda"] != {k: 2 * n for k, n in BILINEAR_ONE_STEP.items()} or any(launches["cpu"].values()):
+        raise AssertionError(f"bf16 step parity: bilinear launches {launches}")
+    for run, (first, second) in losses.items():
+        if not (first["dis/loss_gp"] > 0 and second["dis/loss_gp"] == 0):
+            raise AssertionError(f"bf16 step parity: {run} took R1 on the wrong step: {losses[run]}")
+        if not all(math.isfinite(v) for step in (first, second) for v in step.values()):
+            raise AssertionError(f"bf16 step parity: {run} has a loss that is not finite")
+    if reading > STEP_BF16_ATOL:
+        raise AssertionError(f"bf16 step parity: CPU and card {reading:.3e} apart, above {STEP_BF16_ATOL}")
+
+
+def phase_main_path_bf16(torch, has_yaml: bool):
+    """The StyleGAN main path with ``mixed16``: R1 every step, then lazy R1."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    # stage 10: blocks 0-5 and the toRGBD head out5; D's blocks 5-0
+    sites = {"gen.gen.block5.c1": bf16, "gen.gen.out5": f32, "dis.block1.c0": bf16}
+    values = dict(FFHQ_STYLEGAN_OCCLUSION, mixed16=True)
+    every, lift, _ = _drive(torch, has_yaml, "main_path_bf16", values, 128, "ffhq_stylegan_occlusion_bf16", sites)
+    lazy, lazy_lift, _ = _drive(torch, has_yaml, "main_path_bf16_lazy_r1", dict(values, r1_interval=16, iteration=18),
+                                128, "ffhq_stylegan_occlusion_bf16_lazy_r1", sites)
+    if any(lift.values()) or any(lazy_lift.values()):
+        raise AssertionError(f"bf16 main path: the StyleGAN step launched the lift {lift} {lazy_lift}")
+    return every, lazy
+
+
+def phase_deepvoxels_bf16(torch, has_yaml: bool):
+    """The DeepVoxels main path with ``mixed16``."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    sites = {"gen.voxel_gen.block1.c0": bf16, "gen.style_generator.c4": bf16, "dis.block1.c0": bf16,
+             "lift_frustum": f32}
+    bil, lift, _ = _drive(torch, has_yaml, "main_path_deepvoxels_bf16", dict(DEEPVOXELS_SHAPENET_CAR, mixed16=True), 64,
+                          "deepvoxels_shapenet_car_bf16", sites)
+    if lift != {**LIFT_NONE, "fwd_win_vec4": 10, "bwd_win_vec4": 5}:
+        raise AssertionError(f"deepvoxels bf16 path: lift launches {lift}")
+    return bil, lift
 
 
 def phase_deepvoxels_paths(torch, has_yaml: bool):
@@ -934,10 +1077,7 @@ def phase_deepvoxels_paths(torch, has_yaml: bool):
         64, "deepvoxels_shapenet_car_f32")
     if full != {**LIFT_NONE, "fwd_vec4": 4, "bwd_vec4": 2}:
         raise AssertionError(f"deepvoxels pallas_f32 path: lift launches {full}")
-    # the kernels that ran: the windowed pair on the yml's default, the full pair on pallas_f32
-    lift = {"fwd": full["fwd_vec4"], "bwd": full["bwd_vec4"], "fwd_win": win["fwd_win_vec4"],
-            "bwd_win": win["bwd_win_vec4"]}
-    return lift, bil_win, bil_full
+    return {"deepvoxels": win, "deepvoxels_f32": full}, bil_win, bil_full
 
 
 def main() -> int:
@@ -954,6 +1094,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
     has_yaml = phase_device(torch)
     bilinear_parity = {path: phase_kernels(torch, path) for path in BILINEAR_SHAPES}
     errs, times, bounds, at_warp = bilinear_parity["stylegan"]
@@ -962,7 +1103,11 @@ def main() -> int:
     phase_step_parity(torch)
     phase_deepvoxels_step_parity(torch)
     by_path = {"stylegan": phase_main_path(torch, has_yaml)}
-    lift_launches, by_path["deepvoxels"], by_path["deepvoxels_f32"] = phase_deepvoxels_paths(torch, has_yaml)
+    lift_by_path, by_path["deepvoxels"], by_path["deepvoxels_f32"] = phase_deepvoxels_paths(torch, has_yaml)
+    phase_step_parity_bf16(torch)
+    by_path["stylegan_bf16"], by_path["stylegan_bf16_lazy_r1"] = phase_main_path_bf16(torch, has_yaml)
+    by_path["deepvoxels_bf16"], lift_by_path["deepvoxels_bf16"] = phase_deepvoxels_bf16(torch, has_yaml)
+    log("wall", seconds=f"{time.perf_counter() - started:.1f}")
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -996,13 +1141,17 @@ def main() -> int:
             e["at_deepvoxels_shapes"].update(generic_ms=dv_times["bwd_generic"], at_warp_points=dv_at_warp)
         kernels.append(e)
     for key, line in (("fwd", 110), ("bwd", 141), ("fwd_win", 210), ("bwd_win", 240)):
+        # the vectorised kernels ran: the windowed pair on the yml's default, the full pair on pallas_f32
+        counted = key + "_vec4"
         e = entry(
-            "trilinear_lift_" + key, tri, pallas % ("trilinear", line), lift_launches[key], lift_errs[key],
+            "trilinear_lift_" + key, tri, pallas % ("trilinear", line),
+            sum(counts[counted] for counts in lift_by_path.values()), lift_errs[key],
             lift_times[key], lift_times[key + "_plain"], lift_bounds[key],
             lift_times["library_" + key[:3]],
         )
         # the vectorised kernel ran; the thread-per-(cell, channel) one, timed in turns
-        e.update(kernel=f"lift_{key[:3]}_vec4_kernel", generic_ms=lift_times[key + "_generic"])
+        e.update(kernel=f"lift_{key[:3]}_vec4_kernel", generic_ms=lift_times[key + "_generic"],
+                 launches_by_path={path: counts[counted] for path, counts in lift_by_path.items()})
         kernels.append(e)
     # K6 on its path (the benchmark), one entry per kernel: the FMA kernel
     # with float32 at the first shape on top, the tensor-core kernel with

@@ -22,10 +22,13 @@ Quirks kept:
 - ``AccumulativeOcclusionNet``'s threshold defaults to 4 (``deepvoxel.py:556``)
 - the latent is a plain N(0, 1) draw, not normalised
 
+``compute_dtype=torch.bfloat16`` (the yml's ``mixed16``) runs the 3D voxel
+generator and the 2D refiner in bf16 with float32 parameters; the mapping,
+the lift, the occlusion net and the depth decode stay float32.
+
 Not ported yet, raising ``NotImplementedError``: the background generator,
 ``RenderNetProjection``, the U-Net ``OcclusionNet`` and the 2-D/3-D U-Nets,
-``DeepVoxelsDiscriminator``, a bf16 compute type and the eval-mode forward
-of the trainer.
+``DeepVoxelsDiscriminator`` and the eval-mode forward of the trainer.
 
 Parameter names follow the flax tree (``voxel_gen.block1.c0.weight`` is
 ``voxel_gen/block1/c0/kernel``), so :mod:`..bridge` maps one onto the other.
@@ -311,10 +314,10 @@ class SynthesisBlock3D(nn.Module):
         if self.upsample:
             h = self.c0(upscale2x_3d(x))
         else:
-            h = self.const[None].expand(w.shape[0], 4, 4, 4, self.ch_in)
-        h = self.s0(w, leaky_relu(h + self.b0))
+            h = self.const[None].expand(w.shape[0], 4, 4, 4, self.ch_in).to(w.dtype)
+        h = self.s0(w, leaky_relu(h + self.b0.to(h.dtype)))
         h = self.c1(h)
-        return self.s1(w, leaky_relu(h + self.b1))
+        return self.s1(w, leaky_relu(h + self.b1.to(h.dtype)))
 
 
 class VoxelGenerator(nn.Module):
@@ -393,9 +396,11 @@ class DeepVoxelsGenerator(nn.Module):
         accumulative_threshold: float = 4.0,
         exact_lifting: bool = True,
         lift_mode: str = "gather",
+        compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         if background_generator:
             raise NotImplementedError("not ported yet: background_generator (BackgroundFeatureGenerator)")
         if lift_mode not in LIFT_MODES:
@@ -433,13 +438,15 @@ class DeepVoxelsGenerator(nn.Module):
         """(B, ch) latents, (B, 4, 4) cam2world -> (B, 64, 64, 4) RGBD. ``theta``
         conditions only the background generator and is unused without it."""
         w = self.mapping(z.reshape(z.shape[0], -1))
-        voxel = self.voxel_gen(w)  # (B, 32, 32, 32, feats)
+        w2 = self.mapping(z2.reshape(z2.shape[0], -1))
+        if self.compute_dtype is not None:
+            w, w2 = w.to(self.compute_dtype), w2.to(self.compute_dtype)
+        voxel = self.voxel_gen(w).float()  # (B, 32, 32, 32, feats)
         frustum = lift_frustum(voxel, camera_matrices, self.frustum_coords, self.lift_mode)
         weights, depth_norm = self.occlusion_net(frustum, train)
         novel_feats = torch.sum(weights * frustum, dim=1)  # (B, H, W, C)
         depth = decode_depth(depth_norm)
-        w2 = self.mapping(z2.reshape(z2.shape[0], -1))
-        novel_img = self.style_generator(novel_feats, w2)
+        novel_img = self.style_generator(novel_feats.to(w2.dtype), w2).float()
         return torch.cat([novel_img, depth], dim=-1)
 
 
@@ -479,8 +486,6 @@ def _resolve_lift_mode(requested, z_rotate: float = 0.0, on_cuda: bool = False) 
 def build_deepvoxels_generator(config, generator: Optional[torch.Generator] = None, on_cuda: bool = False):
     """The trainer's factory (``train_rgbd.py:233-243`` occlusion-type mapping);
     ``on_cuda`` says where the generator will run, which decides the lift mode."""
-    if config.mixed16:
-        raise NotImplementedError("not ported yet: mixed16 (bf16 compute_dtype)")
     if config.rendernet_projection:
         occlusion_type = "rendernet"
     elif config.occlusion_type:
@@ -493,6 +498,7 @@ def build_deepvoxels_generator(config, generator: Optional[torch.Generator] = No
         background_generator=bool(config.background_generator),
         accumulative_threshold=config.accumulative_threshold if config.accumulative_threshold else 4.0,
         lift_mode=_resolve_lift_mode(config.lift_mode, config.z_rotate, on_cuda),
+        compute_dtype=torch.bfloat16 if config.mixed16 else None,
         generator=generator,
     )
     return gen, (lambda g, n, device="cpu": deepvoxels_make_hidden(g, n, config.ch, device))

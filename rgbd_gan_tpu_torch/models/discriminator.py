@@ -4,7 +4,10 @@
 D sees RGB only. Progressive fade-in mirrors the generator; the 32x32
 hidden feature (tapped before ``block3``) is returned with
 ``return_hidden=True``. ``res=True`` adds a conv shortcut per block.
-Spectral normalisation is not ported yet.
+``compute_dtype=torch.bfloat16`` (the yml's ``mixed16``) casts the input at
+entry and runs the trunk in bf16 with float32 parameters; the logit and the
+hidden tap are returned in float32. Spectral normalisation is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -78,9 +81,11 @@ class Discriminator(nn.Module):
         out_dim: int = 1,
         enable_blur: bool = False,
         res: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.block0 = DiscriminatorBlockBase(ch, out_dim, generator=generator)
         for i, (c_in, c_out) in enumerate(_dis_block_channels(ch)):
             self.add_module(
@@ -99,6 +104,8 @@ class Discriminator(nn.Module):
     def forward(self, x: torch.Tensor, stage_floor: int, alpha=0.0, *, return_hidden: bool = False):
         stage = min(int(stage_floor), MAX_STAGE - 1)
         feat = None
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         if stage % 2 == 0:
             k = (stage - 2) // 2
             h = self._in(k + 1, x)
@@ -110,11 +117,14 @@ class Discriminator(nn.Module):
             k = (stage - 1) // 2
             h_0 = self._in(k, downscale2x(x))
             h_1 = self._run_block(k + 1, self._in(k + 1, x))
-            h = (1.0 - alpha) * h_0 + alpha * h_1
+            # the JAX trainer passes alpha as a float32 array, which promotes a
+            # bf16 trunk: every block after the fade-in runs in float32
+            h = (1.0 - alpha) * h_0.float() + alpha * h_1.float()
             for i in reversed(range(0, k + 1)):  # k .. 0
                 if i == 3:
                     feat = h
                 h = self._run_block(i, h)
+        h = h.float()
         if return_hidden:
-            return h, feat
+            return h, (feat.float() if feat is not None else None)
         return h

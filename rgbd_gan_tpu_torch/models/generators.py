@@ -14,6 +14,11 @@ Port of the StyleGAN part of :mod:`rgbd_gan_tpu.models.generators`
 - ``stylegan_make_hidden`` divides the 2*ch-dim z by sqrt(sum/ch)
   (``net.py:333-343``)
 
+``compute_dtype=torch.bfloat16`` (the yml's ``mixed16``) runs the synthesis
+trunk in bf16 with float32 parameters; the mapping network, the toRGBD
+heads, the fade-in blend and the depth decode stay float32, and the output
+and the feature tap are float32.
+
 The eval-mode output upsampling and ``rotate_conv_input`` wait for the
 preview port.
 
@@ -103,10 +108,10 @@ class SynthesisBlock(nn.Module):
                 h = blur3x3(h)
             h = self.c0(h)
         else:
-            h = self.const[None].expand(w.shape[0], 4, 4, self.ch_in)
-        h = self.s0(w, leaky_relu(h + self.b0))
+            h = self.const[None].expand(w.shape[0], 4, 4, self.ch_in).to(w.dtype)
+        h = self.s0(w, leaky_relu(h + self.b0.to(h.dtype)))
         h = self.c1(h)
-        return self.s1(w, leaky_relu(h + self.b1))
+        return self.s1(w, leaky_relu(h + self.b1.to(h.dtype)))
 
 
 def _stylegan_block_channels(ch: int):
@@ -123,10 +128,11 @@ class StyleGenerator(nn.Module):
         enable_blur: bool = False,
         rgbd: bool = False,
         initial_depth: float = 1.0,
+        compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.rgbd = rgbd
+        self.rgbd, self.compute_dtype = rgbd, compute_dtype
         out_ch = 4 if rgbd else 3
         for i, (c_out, c_in) in enumerate(_stylegan_block_channels(ch)):
             self.add_module(
@@ -168,6 +174,10 @@ class StyleGenerator(nn.Module):
         stage = min(int(stage_floor), MAX_STAGE - 1)
         if self.rgbd and theta is None:
             raise ValueError("theta is required for an RGBD generator")
+        if self.compute_dtype is not None:
+            w, w2 = w.to(self.compute_dtype), w2.to(self.compute_dtype)
+            if theta is not None:
+                theta = theta.to(self.compute_dtype)
         feat = None
         h = None
         if stage % 2 == 0:
@@ -178,7 +188,7 @@ class StyleGenerator(nn.Module):
                 h = self.block(i)(self._conditioned_w(i, w, theta), x=h)
                 if return_feature and i == 3:
                     feat = h
-            h = self.out(k + 1)(h)
+            h = self.out(k + 1)(h.float())
         else:
             k = (stage - 1) // 2
             for i in range(0, k + 1):  # 0 .. k
@@ -187,14 +197,16 @@ class StyleGenerator(nn.Module):
                 h = self.block(i)(self._conditioned_w(i, w, theta), x=h)
                 if return_feature and i == 3:
                     feat = h
-            h_0 = upscale2x(self.out(k)(h))
+            h_0 = upscale2x(self.out(k)(h.float()))
             # the fade-in block gets the *unconditioned* w (net.py:290)
-            h_1 = self.out(k + 1)(self.block(k + 1)(w, x=h))
+            h_1 = self.out(k + 1)(self.block(k + 1)(w, x=h).float())
             h = (1.0 - alpha) * h_0 + alpha * h_1
 
         if self.rgbd:
             depth = 1.0 / (F.softplus(h[..., -1:]) + 1e-4)
             h = torch.cat([h[..., :3], depth], dim=-1)
+        if feat is not None:
+            feat = feat.float()
         return (h, feat) if return_feature else h
 
 
@@ -207,12 +219,14 @@ class StyleGANGenerator(nn.Module):
         enable_blur: bool = False,
         rgbd: bool = False,
         initial_depth: float = 1.0,
+        compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.mapping = MappingNetwork(ch, generator=generator)
         self.gen = StyleGenerator(
-            ch, enable_blur=enable_blur, rgbd=rgbd, initial_depth=initial_depth, generator=generator
+            ch, enable_blur=enable_blur, rgbd=rgbd, initial_depth=initial_depth, compute_dtype=compute_dtype,
+            generator=generator,
         )
 
     def forward(

@@ -19,10 +19,18 @@ Activations are NHWC, as in the JAX package. Conv weights are PyTorch's
 (out, in, kh, kw) and linear weights (out, in); a convolution runs on a
 permuted NCHW *view* of the NHWC tensor (channels-last strides), so no
 layout copy is made.
+
+A bf16 activation (the JAX package's ``compute_dtype``) is rounded where the
+JAX modules round it: parameters stay float32 and are cast to the
+activation's dtype at each use, a Python constant scales it as JAX's weak
+typing does (rounded to the activation's dtype first), biases are added
+after the product, and the norms compute their statistics and affine in
+float32 and return the input's dtype.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -31,30 +39,43 @@ import torch.nn.functional as F
 from torch import nn
 
 
+@functools.lru_cache(maxsize=None)
+def weak_scalar(c: float, dtype: torch.dtype) -> float:
+    """The Python constant ``c`` as JAX's weak typing applies it to an array
+    of ``dtype``: rounded to that dtype (0.2 is 0.2001953125 in bf16)."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     """Chainer's default leaky ReLU slope is 0.2."""
-    return F.leaky_relu(x, slope)
+    return F.leaky_relu(x, weak_scalar(slope, x.dtype))
 
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """x / sqrt(mean(x^2 over the last axis) + eps) (``pggan.py:7-10``)."""
-    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    """x / sqrt(mean(x^2 over the last axis) + eps) (``pggan.py:7-10``),
+    computed in float32."""
+    xf = x.float()
+    return (xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)).to(x.dtype)
 
 
 def adain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Adaptive instance norm over the spatial axes of an NHWC tensor, biased
-    variance, then ``xn * scale + bias`` with (B, C) style vectors."""
+    variance, then ``xn * scale + bias`` with (B, C) style vectors; computed
+    in float32."""
     axes = tuple(range(1, x.dim() - 1))
-    mean = torch.mean(x, dim=axes, keepdim=True)
-    var = torch.mean(torch.square(x - mean), dim=axes, keepdim=True)
-    xn = (x - mean) * torch.rsqrt(var + eps)
+    xf = x.float()
+    mean = torch.mean(xf, dim=axes, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=axes, keepdim=True)
+    xn = (xf - mean) * torch.rsqrt(var + eps)
     shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-    return xn * scale.reshape(shape) + bias.reshape(shape)
+    return (xn * scale.reshape(shape).float() + bias.reshape(shape).float()).to(x.dtype)
 
 
 def l2_normalize_channels(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Chainer ``F.normalize``: x / (||x||_2 + eps) over the last axis."""
-    return x / (torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)) + eps)
+    """Chainer ``F.normalize``: x / (||x||_2 + eps) over the last axis, computed
+    in float32."""
+    xf = x.float()
+    return (xf / (torch.sqrt(torch.sum(xf * xf, dim=-1, keepdim=True)) + eps)).to(x.dtype)
 
 
 def upscale2x(x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +119,12 @@ def conv2d_nhwc(
     return y.permute(0, 2, 3, 1)
 
 
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``y + bias`` after the product, in y's dtype, as the JAX layers add it
+    (a bias passed into the product would be added before its rounding)."""
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 class EqualizedLinear(nn.Module):
     """Linear with equalized learning rate (``pggan.py:40-50``)."""
 
@@ -118,7 +145,7 @@ class EqualizedLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
-        return F.linear(self.inv_c * x, self.weight, self.bias)
+        return _add_bias(F.linear(x * weak_scalar(self.inv_c, x.dtype), self.weight.to(x.dtype)), self.bias)
 
 
 class EqualizedConv2D(nn.Module):
@@ -144,7 +171,8 @@ class EqualizedConv2D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(self.inv_c * x, self.weight, self.bias, self.stride, self.padding)
+        y = conv2d_nhwc(x * weak_scalar(self.inv_c, x.dtype), self.weight.to(x.dtype), None, self.stride, self.padding)
+        return _add_bias(y, self.bias)
 
 
 class EqualizedConv3D(nn.Module):
@@ -172,10 +200,13 @@ class EqualizedConv3D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x * weak_scalar(self.inv_c, x.dtype)
+        weight = self.weight.to(x.dtype)
         if self.kernel_size == 1 and self.stride == 1 and self.padding == 0:
-            return F.linear(self.inv_c * x, self.weight.flatten(1), self.bias)
-        y = F.conv3d((self.inv_c * x).permute(0, 4, 1, 2, 3), self.weight, self.bias, self.stride, self.padding)
-        return y.permute(0, 2, 3, 4, 1)
+            y = F.linear(x, weight.flatten(1))
+        else:
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, None, self.stride, self.padding).permute(0, 2, 3, 4, 1)
+        return _add_bias(y, self.bias)
 
 
 class NoiseBlock(nn.Module):
@@ -188,7 +219,7 @@ class NoiseBlock(nn.Module):
 
     def forward(self, h: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         noise = torch.randn(h.shape[:-1] + (1,), generator=generator, device=h.device, dtype=h.dtype)
-        return h + noise * self.gain
+        return h + noise * self.gain.to(h.dtype)
 
 
 class AdaINBlock(nn.Module):

@@ -1,15 +1,18 @@
 """Where one full-width train step spends its time on the card.
 
 ``python -m rgbd_gan_tpu_torch.tools.profile_step configs/deepvoxels_shapenet_car.yml``
-(or ``configs/ffhq_stylegan_occlusion.yml``) builds the port's trainer from
-the yml on synthetic images, with the 3D-consistency loss on from the first
+(or ``configs/ffhq_stylegan_occlusion.yml``, or a copy of either with
+``mixed16: True`` for the bf16 trunk) builds the port's trainer from the yml
+on synthetic images, with the 3D-consistency loss on from the first
 iteration and, for StyleGAN, the schedule pinned at the yml's last stage;
 runs 3 warm-up steps, times ``--steps`` synchronised steps on the host
 clock, then traces 2 steps with ``torch.profiler`` and prints one
 JSON object: the card's name and power limit, the median wall time per step,
-the CUDA kernels' time per step, the device's idle share (1 - kernel time /
-median wall time of the untraced steps: tracing slows the host, not the
-kernels), peak memory, and the kernels that take most of the time, by name.
+the CUDA kernels' time per step (the sum of their durations, and the time
+in which at least one ran: the union of their intervals), the device's idle
+share (1 - that union / median wall time of the untraced steps: tracing
+slows the host, not the kernels), peak memory, and the kernels that take
+most of the time, by name, with the longest single call of each.
 It needs a CUDA device and fails without one.
 """
 
@@ -30,6 +33,16 @@ from ..data.dataset import synthetic_dataset
 from ..train.trainer import Trainer
 
 WARMUP, TRACED = 3, 2
+
+
+def _union_us(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def _steps(trainer: Trainer, n: int):
@@ -82,12 +95,15 @@ def main(argv=None) -> int:
         for _ in _steps(trainer, TRACED):
             pass
     traced_ms = 1e3 * (time.perf_counter() - t0) / TRACED
-    by_name = {}
+    by_name, longest, spans = {}, {}, []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.device_time / 1e3 / TRACED, n + 1)
+            longest[e.name] = max(longest.get(e.name, 0.0), e.device_time / 1e3)
+            spans.append((e.time_range.start, e.time_range.end))
     kernel_ms = sum(ms for ms, _ in by_name.values())
+    busy_ms = _union_us(spans) / 1e3 / TRACED
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
     ours = {k: v for k, v in by_name.items() if "::lift_" in k or "::bilinear_" in k}
     smi = subprocess.run(
@@ -95,14 +111,15 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(json.dumps({
         "card": smi, "config": args.config_path, "architecture": config.generator_architecture,
-        "batch": trainer.batch_size, "image_px": image_px,
+        "batch": trainer.batch_size, "image_px": image_px, "mixed16": bool(config.mixed16),
+        "r1_interval": int(config.r1_interval or 1),
         "lift_mode": getattr(trainer.state.gen, "lift_mode", None),
         "wall_ms_per_step_median": statistics.median(wall), "wall_ms_per_step": [round(t, 3) for t in wall],
-        "traced_wall_ms_per_step": traced_ms, "kernel_ms_per_step": kernel_ms,
-        "device_idle_share": 1.0 - kernel_ms / statistics.median(wall) if kernel_ms else None,
+        "traced_wall_ms_per_step": traced_ms, "kernel_ms_per_step": kernel_ms, "kernel_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / statistics.median(wall) if busy_ms else None,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "top_kernels_ms_per_step": [{"name": k[:120], "ms": round(ms, 4), "calls_per_step": n / TRACED}
-                                    for k, (ms, n) in top],
+        "top_kernels_ms_per_step": [{"name": k[:120], "ms": round(ms, 4), "calls_per_step": n / TRACED,
+                                     "longest_call_ms": round(longest[k], 4)} for k, (ms, n) in top],
         "hand_written_kernels_ms_per_step": {k[:120]: {"ms": round(ms, 4), "calls_per_step": n / TRACED}
                                              for k, (ms, n) in ours.items()},
     }, indent=1))

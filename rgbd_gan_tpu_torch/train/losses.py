@@ -43,11 +43,14 @@ def dis_out_and_r1(
 
     ``mean_b(||d sum(D(x)) / dx||^2)`` (``updater.py:414-418``); the input
     gradient is taken with ``create_graph=True`` so that the penalty stays
-    differentiable with respect to the discriminator's parameters.
+    differentiable with respect to the discriminator's parameters. The
+    gradient has ``x_real``'s dtype (bf16 under ``mixed16``); the penalty's
+    arithmetic is float32.
     """
     x = x_real.detach().requires_grad_(True)
     y_real = dis_fn(x)
     (grad_x,) = torch.autograd.grad(y_real, x, torch.ones_like(y_real), create_graph=True)
+    grad_x = grad_x.float()
     sq_norms = torch.sum(grad_x**2, dim=tuple(range(1, grad_x.dim())))
     return y_real, l2_loss(torch.sqrt(sq_norms + 1e-24), 0.0)
 

@@ -10,7 +10,13 @@ One iteration:
     the mapping (alpha/100) and synthesis domains
  5. EMA soft copy into the smoothed generator
  6. D loss on the *detached pre-update* fakes and the reals, plus the R1
-    penalty by double backward -> Adam update
+    penalty by double backward -> Adam update. With ``r1_interval`` k > 1
+    (lazy R1) the penalty is taken only when the state's iteration is a
+    multiple of k, weighted ``lambda_gp * k``; the other steps run one plain
+    D(x_real) forward and report ``dis/loss_gp`` 0.
+
+Under ``mixed16`` the reals reach D's R1 forward already cast to D's compute
+dtype, so the input gradient is rounded to bf16 as in the JAX step.
 
 The step mutates the state in place.
 """
@@ -46,8 +52,8 @@ class StepSpec:
     lambda_rotate: float = 2.0
     gather_mode: str = "xla"
     max_stage: int = 17
-    # the JAX step's options that are not on the StyleGAN path: refused
     r1_interval: int = 1
+    # the JAX step's options that are not on the StyleGAN path: refused
     rotate_feature: bool = False
     use_occupancy: bool = False
     sn: bool = False
@@ -61,14 +67,19 @@ def _to_unit_range(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _in_dtype_of(dis, x: torch.Tensor) -> torch.Tensor:
+    """``x`` in D's compute dtype: the R1 penalty's differentiated input."""
+    return x if dis.compute_dtype is None else x.to(dis.compute_dtype)
+
+
 def make_rgbd_train_step(
     make_hidden: Callable[[Optional[torch.Generator], int], torch.Tensor],
     prior,
     spec: StepSpec,
 ):
     """Build the StyleGAN RGBD train step for ``spec`` (exact bilinear
-    sampling, R1 every step); raises ``NotImplementedError`` for the options
-    that are not ported.
+    sampling, R1 every ``spec.r1_interval`` steps); raises
+    ``NotImplementedError`` for the options that are not ported.
 
     ``make_hidden(generator, n)`` draws n latents on the state's device.
     Returns ``step(state, x_real_full, alpha, generator=None, *, z=None,
@@ -77,7 +88,6 @@ def make_rgbd_train_step(
     step's own draws when given. Metrics are 0-dim tensors on the device.
     """
     unported = {
-        "r1_interval > 1": spec.r1_interval > 1,
         "rotate_feature": spec.rotate_feature,
         "use_occupancy": spec.use_occupancy,
         "sn": spec.sn,
@@ -147,9 +157,13 @@ def make_rgbd_train_step(
         dis.requires_grad_(True)
         y_fake = dis(x_fake_rgb, stage, alpha)
         if spec.lambda_gp > 0:
-            # one D(x_real) forward feeds both the adversarial term and R1
-            y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_real)
-            gp = spec.lambda_gp * gp_raw
+            x_r1 = _in_dtype_of(dis, x_real)
+            if state.iteration % spec.r1_interval == 0:
+                # one D(x_real) forward feeds both the adversarial term and R1
+                y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_r1)
+                gp = spec.lambda_gp * spec.r1_interval * gp_raw
+            else:
+                y_real, gp = dis(x_r1, stage, alpha), torch.zeros((), device=device)
             loss_dis = dis_adv_loss(y_fake, y_real) + gp
             metrics["dis/loss_gp"] = gp.detach()
         else:

@@ -33,7 +33,7 @@ from ..models.deepvoxels import PROJECTION_INTRINSIC
 from .ema import soft_copy_params
 from .losses import dis_adv_loss, dis_out_and_r1, gen_adv_loss
 from .state import TrainState
-from .steps import StepSpec, _to_unit_range
+from .steps import StepSpec, _in_dtype_of, _to_unit_range
 
 DEEPVOXELS_STAGE = 8  # floor of the pinned 8.5
 IMG_SIZE = 64
@@ -145,7 +145,7 @@ def make_deepvoxels_train_step(
         dis.requires_grad_(True)
         y_fake = dis(x_fake_rgb, stage, alpha)
         if spec.lambda_gp > 0:
-            y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_real)
+            y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), _in_dtype_of(dis, x_real))
             gp = spec.lambda_gp * gp_raw
             loss_dis = dis_adv_loss(y_fake, y_real) + gp
             metrics["dis/loss_gp"] = gp.detach()

@@ -8,11 +8,15 @@ alpha/100 inside the synthesis domain, for DeepVoxels one optimizer over the
 whole generator, mapping included), the piecewise-linear stage schedule
 (DeepVoxels is pinned at stage 8.5, 64 px), the per-iteration NaN guard, the
 reference's report keys, ``log.jsonl``, snapshots and resume. Float32 stays
-float32: TF32 is switched off for matmuls and convs.
+float32: TF32 is switched off for matmuls and convs. ``mixed16: True`` runs
+the generator's and the discriminator's trunks in bf16 (parameters,
+gradients, Adam state and EMA stay float32), with bf16 products accumulated
+in float32; ``r1_interval: k`` takes the StyleGAN step's R1 penalty every
+k-th step at weight ``lambda_gp * k``.
 
 Not on these paths yet, and refused: the DCGAN generator, spectral norm,
-``rotate_feature``, occupancy, lazy R1, ``mixed16``, ``use_mpi`` and
-``step_window > 1``; of DeepVoxels the background generator,
+``rotate_feature``, occupancy, ``use_mpi`` and ``step_window > 1``; lazy R1
+on the DeepVoxels step (as in the JAX package); of DeepVoxels the background generator,
 ``rendernet_projection`` and ``occlusion_type: occlusion_unet``. Preview
 images wait for the eval port.
 """
@@ -76,8 +80,6 @@ def _check_config(config) -> None:
         "rotate_feature": bool(config.rotate_feature),
         "rotate_conv_input": bool(config.rotate_conv_input),
         "use_occupancy_net_loss": bool(config.use_occupancy_net_loss),
-        "mixed16": bool(config.mixed16),
-        "r1_interval > 1": bool(config.r1_interval) and int(config.r1_interval) > 1,
         "use_mpi": bool(config.use_mpi),
         "step_window > 1": bool(config.step_window) and int(config.step_window) > 1,
         "nvprof": bool(config.nvprof) or bool(config.enable_cuda_profiling),
@@ -91,6 +93,12 @@ def _check_config(config) -> None:
         raise NotImplementedError("optical flow loss is not supported (updater.py:374)")
 
 
+def _compute_dtype(config) -> Optional[torch.dtype]:
+    """The trunks' dtype: bf16 for ``mixed16: True`` (``train_rgbd.py``'s
+    mixed16 global dtype), else float32."""
+    return torch.bfloat16 if config.mixed16 else None
+
+
 def setup_generator(config, generator: Optional[torch.Generator] = None, on_cuda: bool = False):
     """The generator and its latent sampler (``train_rgbd.py:220-246``);
     ``on_cuda`` says where it will run (it decides the DeepVoxels lift mode)."""
@@ -99,7 +107,7 @@ def setup_generator(config, generator: Optional[torch.Generator] = None, on_cuda
     initial_depth = config.initial_depth if config.initial_depth is not None else 1.0
     gen = StyleGANGenerator(
         config.ch, enable_blur=bool(config.enable_blur), rgbd=True,
-        initial_depth=initial_depth, generator=generator,
+        initial_depth=initial_depth, compute_dtype=_compute_dtype(config), generator=generator,
     )
     return gen, (lambda g, n, device="cpu": stylegan_make_hidden(g, n, config.ch, device))
 
@@ -107,7 +115,7 @@ def setup_generator(config, generator: Optional[torch.Generator] = None, on_cuda
 def setup_discriminator(config, generator: Optional[torch.Generator] = None) -> Discriminator:
     return Discriminator(
         ch=config.ch, enable_blur=bool(config.enable_blur), res=bool(config.res_dis),
-        generator=generator,
+        compute_dtype=_compute_dtype(config), generator=generator,
     )
 
 
@@ -133,6 +141,8 @@ class Trainer:
         _check_config(config)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bf16 products are summed in float32, as in the JAX package
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.config = config
         self.stage_interval = parse_stage_interval(config.stage_interval)
         self.max_stage = config.max_stage
@@ -192,6 +202,7 @@ class Trainer:
             lambda_rotate=c.lambda_rotate if c.lambda_rotate else 2.0,
             gather_mode=str(c.gather_mode) if c.gather_mode else "xla",
             max_stage=self.max_stage,
+            r1_interval=int(c.r1_interval) if c.r1_interval else 1,
         )
 
     def _step(self, spec: StepSpec) -> Callable:

@@ -82,7 +82,7 @@ def test_cli_runs_the_softmax_occlusion_net(scratch):
 
 @pytest.mark.parametrize("option,error", [
     (dict(background_generator=True), NotImplementedError), (dict(rendernet_projection=True), NotImplementedError),
-    (dict(occlusion_type="occlusion_unet"), NotImplementedError), (dict(mixed16=True), NotImplementedError),
+    (dict(occlusion_type="occlusion_unet"), NotImplementedError), (dict(step_window=10), NotImplementedError),
     (dict(use_mpi=True), NotImplementedError), (dict(sn=True), NotImplementedError),
     (dict(generator_architecture="dcgan"), NotImplementedError), (dict(r1_interval=16), ValueError),
     (dict(occlusion_type="nonesuch"), ValueError),

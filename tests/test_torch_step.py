@@ -225,7 +225,7 @@ def test_cli_runs_snapshots_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(r1_interval=16), dict(rotate_feature=True), dict(use_occupancy=True), dict(sn=True),
+    dict(rotate_feature=True), dict(use_occupancy=True), dict(sn=True),
     dict(axis_name="data"),
 ])
 def test_step_refuses_unported_options(option):
