@@ -68,11 +68,32 @@ Phases, each printing one line; any failure exits non-zero:
    conv, a 3D conv of the voxel generator and a refiner conv see bf16
    inputs, and the toRGBD head and `lift_frustum`'s voxel input float32: a
    run that trains in float32 fails.
+   After phase 8's run, `cli/evaluate.py --preview` renders its DeepVoxels
+   snapshot in eval mode: the windowed lift's forward (K5) launched once
+   per generator forward, one per chunk of 16 images, 4 for the 8x8 grid.
+13. DCGAN step parity, the twin of phase 5 (ch 32, which the trainer's
+   quirk uses as the latent width; the hidden width stays 512): one step on
+   the CPU and on the card from the same weights and draws, f32 held to
+   phase 5's tolerance, then bf16 (`mixed16`) held to phase 10's.
+14. the DCGAN main path: `configs/dcgan_shapenet_car.yml` as published
+   (ch 256, hidden 512, batch 32, 128 px at stage 10, `res_dis`, R1 every
+   step) for 5 iterations in f32, then in bf16 with the dtype hooks of
+   phase 11 on a DCGAN block conv (bf16) and the toRGBD head (float32); K1
+   and the vectorised K2 once per iteration. After the f32 run,
+   `cli/evaluate.py --preview --fid --inception --n_images 200 --batchsize
+   100` on its snapshot with a random Inception-v3 (the real statistics from
+   the synthetic images): FID finite and non-negative, IS at least 1; then
+   the Inception forward's time per batch of 100 at 299 px.
+15. `configs/structured_spheres_dcgan.yml` with its `step_window: 10`,
+   `keep_smoothed_gen: True` and previews every 10 iterations, 20
+   iterations at 32 px (3D loss from iteration 0): the window runs as plain
+   steps (K1 and K2 once per iteration), and `preview/` and
+   `preview_smoothed/` each hold a grid of the expected shape.
 
-Each path (the benchmark of phase 4 and the six runs of phases 7-9, 11 and
-12) is driven with every kernel's launch count set to 0 just before it and
-read just after; the script's wall time is printed before the kernels
-line. The line before the last is a JSON object describing
+Each path (the benchmark of phase 4, the runs of phases 7-9, 11, 12, 14
+and 15, and the two evaluations) is driven with every kernel's launch
+count set to 0 just before it and read just after; the script's wall time
+is printed before the kernels line. The line before the last is a JSON object describing
 each kernel (its time beside its bound, the plain version's time and, where
 one exists, a single PyTorch call's; K6's two kernels, FMA and tensor
 cores, one entry each; K2 and the lift's with the old kernel's time in
@@ -107,7 +128,8 @@ FFHQ_STYLEGAN_OCCLUSION = dict(
     generator_architecture="stylegan", bigan=False, rotate_conv_input=False,
     res_dis=True, focal_loss_gamma=1.0, lambda_depth=10, depth_min=1.0,
     x_rotate=0.3054, y_rotate=1.0472, z_rotate=0, x_translate=0, y_translate=0,
-    z_translate=0, use_mpi=False, enable_cuda_profiling=False,
+    z_translate=0, test_x_rotate=0, test_y_rotate=0.7854, test_z_rotate=0, test_x_translate=0,
+    test_y_translate=0, test_z_translate=0, use_mpi=False, enable_cuda_profiling=False,
     snapshot_interval=10000, evaluation_sample_interval=500, display_interval=1,
     get_model_from_interation="", style_mixing_rate=0.0, enable_blur=False,
     nvprof=False,
@@ -123,9 +145,34 @@ DEEPVOXELS_SHAPENET_CAR = dict(
     res_dis=True, focal_loss_gamma=2.0, lambda_depth=10, depth_min=0.6,
     occlusion_type="accumulative",
     x_rotate=0.3054, y_rotate=3.1415, z_rotate=0, x_translate=0, y_translate=0,
-    z_translate=0, uniform_distribution=True, use_mpi=False,
+    z_translate=0, test_x_rotate=0, test_y_rotate=3.1415, test_z_rotate=0, test_x_translate=0,
+    test_y_translate=0, test_z_translate=0, uniform_distribution=True, use_mpi=False,
     snapshot_interval=10000, evaluation_sample_interval=50, display_interval=1,
     get_model_from_interation="", style_mixing_rate=0.0, enable_blur=False,
+)
+# the dcgan_shapenet_car.yml values, cut to a 5-iteration run pinned at stage
+# 10 (128 px) with the 3D-consistency loss on from iteration 0 and a report
+# row every iteration
+DCGAN_SHAPENET_CAR = dict(
+    nvprof=False, adam_alpha_g=0.001, adam_alpha_d=0.003, adam_beta1=0.0, adam_beta2=0.999,
+    lambda_gp=1.0, sn=False, smoothing=0.999, keep_smoothed_gen=False,
+    batchsize=32, stage_interval="0,0,0,0,0,0,0,0,0,0,0", max_stage=11, iteration=5,
+    start_rotation=-1, start_occlusion_aware=0, auto_resume=False, ch=256,
+    generator_architecture="dcgan", bigan=False, rotate_conv_input=False,
+    res_dis=True, focal_loss_gamma=1.0, lambda_depth=10, depth_min=0.6, lambda_geometric=1,
+    x_rotate=0.3054, y_rotate=3.1415, z_rotate=0, x_translate=0, y_translate=0, z_translate=0,
+    test_x_rotate=0, test_y_rotate=3.1415, test_z_rotate=0, test_x_translate=0, test_y_translate=0,
+    test_z_translate=0, use_mpi=False, enable_cuda_profiling=False,
+    snapshot_interval=10000, evaluation_sample_interval=500, display_interval=1,
+    get_model_from_interation="", style_mixing_rate=0.0, enable_blur=False,
+)
+# the structured_spheres_dcgan.yml values (step_window 10, keep_smoothed_gen,
+# 32 px from stage 6), cut to 20 iterations with the 3D-consistency loss on
+# from iteration 0, a preview every 10 iterations and a report row every one
+STRUCTURED_SPHERES_DCGAN = dict(
+    DCGAN_SHAPENET_CAR, keep_smoothed_gen=True, stage_interval="0,0,0,0,0,0,0,2000", max_stage=7,
+    iteration=20, start_occlusion_aware=0, snapshot_interval=4000, evaluation_sample_interval=10,
+    step_window=10,
 )
 # the bilinear gather's shapes on the StyleGAN path and on the DeepVoxels paths
 BILINEAR_SHAPES = {
@@ -178,6 +225,8 @@ MAX_SHARE_APART = 0.01
 # steps' losses are held loosely. Read on an H100 80GB HBM3: 1.552e-03 (the
 # card's bf16 and float32 steps: 4.233e-02 apart)
 STEP_BF16_ATOL = 3e-3
+# phase 14's evaluation: images scored, and the Inception-v3 batch
+EVAL_IMAGES, EVAL_BATCH = 200, 100
 
 
 def _reset_launches() -> None:
@@ -897,12 +946,13 @@ def _watch_dtypes(sites: dict):
     return seen, undo
 
 
-def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name: str, watch=None):
+def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name: str, watch=None, after=None):
     """Run ``values`` through the CLI's run function on 64 synthetic images
     with every kernel's launch count zeroed just before and read just after;
     returns the launch counts of the bilinear and the trilinear kernels
     (K6, wired into no model, must not launch). ``watch`` maps sites (see
-    :func:`_watch_dtypes`) to the one dtype each must see."""
+    :func:`_watch_dtypes`) to the one dtype each must see. ``after(config)``
+    runs once the run passed, before its directory is removed."""
     from rgbd_gan_tpu_torch.cli import train as cli
     from rgbd_gan_tpu_torch.core.config import Config
     from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
@@ -978,6 +1028,8 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
         wrong = {k: v for k, v in seen.items() if v != {watch[k]}}
         if wrong:
             raise AssertionError(f"{phase}: inputs not in the expected dtype: {wrong} (expected {watch})")
+        if after is not None:
+            after(config)
         return launches, lift_launches, out_files
     finally:
         undo()
@@ -1061,11 +1113,50 @@ def phase_deepvoxels_bf16(torch, has_yaml: bool):
     return bil, lift
 
 
+def _eval_preview_deepvoxels(torch, config, counts: dict) -> None:
+    """``cli/evaluate.py --preview`` on a DeepVoxels snapshot: the 8x8 grid in
+    4 chunks of 16, each one eval-mode generator forward through the
+    windowed lift's forward (K5) and no other kernel of the port."""
+    from rgbd_gan_tpu_torch.cli import evaluate
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = evaluate.run(config, preview=True)
+    torch.cuda.synchronize()
+    counts.update(_read_launches())
+    grid = _read_grid(results["preview"])
+    log("eval_preview_deepvoxels", seconds=f"{time.perf_counter() - t0:.2f}", grid=json.dumps(list(grid.shape)),
+        launches=json.dumps(counts))
+    if counts["trilinear"] != {**LIFT_NONE, "fwd_win_vec4": 4} or any(counts["bilinear"].values()) or any(
+            counts["conv"].values()):
+        raise AssertionError(f"deepvoxels eval preview: launches {counts}, not 4 forwards of the windowed lift")
+    if grid.shape != _grid_shape(64):
+        raise AssertionError(f"deepvoxels eval preview: grid of shape {grid.shape}")
+
+
+def _grid_shape(image_px: int) -> tuple:
+    """The 8x8 preview grid's shape: RGB and depth rows of images at least 64 px."""
+    side = max(image_px, 64)
+    return (16 * side, 8 * side, 3)
+
+
+def _read_grid(path: str) -> np.ndarray:
+    """A preview grid as an array, from its png (or, without PIL, its npy)."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
 def phase_deepvoxels_paths(torch, has_yaml: bool):
-    """The DeepVoxels main path (the yml's default lift: bf16, windowed) and
-    2 iterations with ``lift_mode: pallas_f32`` (the full kernels)."""
+    """The DeepVoxels main path (the yml's default lift: bf16, windowed), with
+    the evaluation CLI's preview of its snapshot, and 2 iterations with
+    ``lift_mode: pallas_f32`` (the full kernels)."""
+    eval_counts = {}
     bil_win, win, files = _drive(
-        torch, has_yaml, "main_path_deepvoxels", DEEPVOXELS_SHAPENET_CAR, 64, "deepvoxels_shapenet_car")
+        torch, has_yaml, "main_path_deepvoxels", DEEPVOXELS_SHAPENET_CAR, 64, "deepvoxels_shapenet_car",
+        after=lambda config: _eval_preview_deepvoxels(torch, config, eval_counts))
     # per iteration: the G phase lifts forward and backward, the D phase
     # forward only; at C = 32 every launch on the vectorised kernels
     if win != {**LIFT_NONE, "fwd_win_vec4": 10, "bwd_win_vec4": 5}:
@@ -1077,7 +1168,137 @@ def phase_deepvoxels_paths(torch, has_yaml: bool):
         64, "deepvoxels_shapenet_car_f32")
     if full != {**LIFT_NONE, "fwd_vec4": 4, "bwd_vec4": 2}:
         raise AssertionError(f"deepvoxels pallas_f32 path: lift launches {full}")
-    return {"deepvoxels": win, "deepvoxels_f32": full}, bil_win, bil_full
+    lift = {"deepvoxels": win, "deepvoxels_f32": full, "deepvoxels_eval_preview": eval_counts["trilinear"]}
+    return lift, bil_win, bil_full
+
+
+def _dcgan_small_config(mixed16: bool):
+    from rgbd_gan_tpu_torch.core.config import Config
+
+    return Config(dict(DCGAN_SHAPENET_CAR, ch=32, batchsize=4, stage_interval="0,0,0,0,0,0,0", max_stage=7,
+                       gather_mode="pallas", mixed16=mixed16))
+
+
+def phase_dcgan_step_parity(torch):
+    """Phase 5's twin for DCGAN: one step (32 px, rotate and occlusion on, R1)
+    on the CPU and on the card from the same weights and draws, in float32
+    (phase 5's tolerance) and in bf16 (phase 10's); beside it the distance
+    between the card's bf16 and float32 steps."""
+    from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
+    from rgbd_gan_tpu_torch.models.generators import dcgan_make_hidden
+    from rgbd_gan_tpu_torch.ops import bilinear
+    from rgbd_gan_tpu_torch.train.trainer import Trainer
+
+    data = synthetic_dataset(8, 32)
+    z = torch.cat([dcgan_make_hidden(torch.Generator().manual_seed(5), 2, 32)] * 2)
+    losses, launches = {}, {}
+    for run, device, mixed16 in (("cpu", "cpu", False), ("cuda", "cuda", False), ("cpu_bf16", "cpu", True),
+                                 ("cuda_bf16", "cuda", True)):
+        trainer = Trainer(_dcgan_small_config(mixed16), dataset=data, seed=0, device=device)  # same weights
+        thetas6 = trainer.prior.sample(torch.Generator().manual_seed(6), 4, "cpu")
+        spec = trainer._spec_for(0, 6)
+        if spec.architecture != "dcgan":
+            raise AssertionError(f"dcgan step parity: the step was built for {spec.architecture}")
+        x = torch.from_numpy(data[:4].transpose(0, 2, 3, 1).copy()).to(device)
+        bilinear.reset_launches()
+        _, metrics = trainer._step(spec)(trainer.state, x, 0.0, z=z, thetas6=thetas6)
+        losses[run] = {k: float(v) for k, v in metrics.items() if "loss" in k}
+        launches[run] = dict(bilinear.launches)
+
+    def worst(a, b):
+        return max(abs(losses[a][k] - losses[b][k]) for k in losses[a])
+
+    f32, bf16 = worst("cpu", "cuda"), worst("cpu_bf16", "cuda_bf16")
+    log("step_parity_dcgan", **{run: json.dumps(v) for run, v in losses.items()}, max_abs_diff_f32=f"{f32:.3e}",
+        rtol=STEP_RTOL, atol=STEP_ATOL, max_abs_diff_bf16=f"{bf16:.3e}", atol_bf16=STEP_BF16_ATOL,
+        card_bf16_vs_card_f32_max_abs_diff=f"{worst('cuda_bf16', 'cuda'):.3e}", launches=json.dumps(launches))
+    for run in ("cuda", "cuda_bf16"):
+        if launches[run] != BILINEAR_ONE_STEP or any(launches[run.replace("cuda", "cpu")].values()):
+            raise AssertionError(f"dcgan step parity: bilinear launches {launches}")
+    for k, a in losses["cpu"].items():
+        b = losses["cuda"][k]
+        if not (math.isfinite(b) and abs(a - b) <= STEP_ATOL + STEP_RTOL * abs(a)):
+            raise AssertionError(f"dcgan step parity failed for {k}: cpu {a} vs cuda {b}")
+    if not (all(math.isfinite(v) for v in losses["cuda_bf16"].values()) and bf16 <= STEP_BF16_ATOL):
+        raise AssertionError(f"dcgan bf16 step parity: CPU and card {bf16:.3e} apart, above {STEP_BF16_ATOL}")
+
+
+def _evaluate_dcgan(torch, config, counts: dict) -> None:
+    """``cli/evaluate.py --preview --fid --inception`` on a DCGAN snapshot
+    with a random Inception-v3; then the Inception forward alone."""
+    import warnings
+
+    from rgbd_gan_tpu_torch.cli import evaluate
+    from rgbd_gan_tpu_torch.eval.inception import INPUT_SIZE, load_params
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-weights warning and sqrtm's on a rank-deficient product
+        results = evaluate.run(config, preview=True, fid=True, inception=True, n_images=EVAL_IMAGES,
+                               batchsize=EVAL_BATCH)
+        model = load_params(None, "cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts.update(_read_launches())
+    grid = _read_grid(results["preview"])
+    x = torch.rand(EVAL_BATCH, INPUT_SIZE, INPUT_SIZE, 3, generator=torch.Generator(device="cuda").manual_seed(7),
+                   device="cuda") * 255
+    with torch.no_grad():
+        device_ms, wall_ms = _time_ms(torch, lambda: model(x, get_feature=True), reps=5)
+    fid, (is_mean, is_std) = results["fid"], results["inception_score"]
+    log("eval_dcgan", seconds=f"{seconds:.2f}", fid=fid, inception_score=is_mean, inception_score_std=is_std,
+        n_images=EVAL_IMAGES, grid=json.dumps(list(grid.shape)), launches=json.dumps(counts),
+        inception_ms_per_batch_of_100_at_299=f"{device_ms if device_ms is not None else wall_ms:.3f}",
+        inception_wall_ms=f"{wall_ms:.3f}")
+    if not (math.isfinite(fid) and fid >= 0.0 and is_mean >= 1.0 - 1e-6):
+        raise AssertionError(f"dcgan eval: FID {fid}, IS {is_mean}")
+    if grid.shape != _grid_shape(128):
+        raise AssertionError(f"dcgan eval: preview grid of shape {grid.shape}")
+    if any(v for kind in counts.values() for v in kind.values()):
+        raise AssertionError(f"dcgan eval: launched the port's kernels {counts}")
+
+
+def phase_dcgan_main_path(torch, has_yaml: bool):
+    """The DCGAN main path in float32 (then the evaluation CLI on its
+    snapshot) and in bf16."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    eval_counts = {}
+    paths = {}
+    paths["dcgan"], lift, _ = _drive(torch, has_yaml, "main_path_dcgan", DCGAN_SHAPENET_CAR, 128,
+                                     "dcgan_shapenet_car", after=lambda c: _evaluate_dcgan(torch, c, eval_counts))
+    # stage 10: blocks 0-4 and the toRGBD head out4; D's blocks 5-0
+    sites = {"gen.block4.c1": bf16, "gen.out4": f32, "dis.block1.c0": bf16}
+    paths["dcgan_bf16"], lift_bf16, _ = _drive(torch, has_yaml, "main_path_dcgan_bf16",
+                                               dict(DCGAN_SHAPENET_CAR, mixed16=True), 128, "dcgan_shapenet_car_bf16",
+                                               sites)
+    if any(lift.values()) or any(lift_bf16.values()):
+        raise AssertionError(f"dcgan main path: the DCGAN step launched the lift {lift} {lift_bf16}")
+    return paths
+
+
+def phase_step_window_previews(torch, has_yaml: bool):
+    """``structured_spheres_dcgan.yml``'s ``step_window: 10`` as plain steps,
+    with the previews of the live and the smoothed generator."""
+
+    def previews(config):
+        out = config.out
+        found = {}
+        for subdir in ("preview", "preview_smoothed"):
+            png, npy = os.path.join(out, subdir, "image_latest.png"), os.path.join(out, f"{subdir}_latest.npy")
+            path = png if os.path.exists(png) else npy
+            if not os.path.exists(path):
+                raise AssertionError(f"step_window: no {subdir} grid in {sorted(os.listdir(out))}")
+            found[subdir] = list(_read_grid(path).shape)
+        log("step_window_previews", grids=json.dumps(found))
+        if any(tuple(shape) != _grid_shape(32) for shape in found.values()):
+            raise AssertionError(f"step_window: preview grids of shapes {found}")
+
+    launches, lift, _ = _drive(torch, has_yaml, "step_window_dcgan", STRUCTURED_SPHERES_DCGAN, 32,
+                               "structured_spheres_dcgan", after=previews)
+    if any(lift.values()):
+        raise AssertionError(f"step_window: the DCGAN step launched the lift {lift}")
+    return launches
 
 
 def main() -> int:
@@ -1107,6 +1328,9 @@ def main() -> int:
     phase_step_parity_bf16(torch)
     by_path["stylegan_bf16"], by_path["stylegan_bf16_lazy_r1"] = phase_main_path_bf16(torch, has_yaml)
     by_path["deepvoxels_bf16"], lift_by_path["deepvoxels_bf16"] = phase_deepvoxels_bf16(torch, has_yaml)
+    phase_dcgan_step_parity(torch)
+    by_path.update(phase_dcgan_main_path(torch, has_yaml))
+    by_path["dcgan_step_window"] = phase_step_window_previews(torch, has_yaml)
     log("wall", seconds=f"{time.perf_counter() - started:.1f}")
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
@@ -1117,9 +1341,9 @@ def main() -> int:
     bil, tri = "rgbd_gan_tpu_torch/csrc/bilinear.cu", "rgbd_gan_tpu_torch/csrc/trilinear.cu"
     pallas = "rgbd_gan_tpu/ops/%s_pallas.py:%d"
     kernels = []
-    # the bilinear pair runs on every path: `launches` is the sum of the three
-    # runs' counts, the other numbers are those at the StyleGAN shapes, and
-    # the DeepVoxels shapes' stand beside them
+    # the bilinear pair runs on every training path: `launches` is the sum of
+    # the runs' counts, the other numbers are those at the StyleGAN shapes
+    # (the DCGAN step's too), and the DeepVoxels shapes' stand beside them
     dv_errs, dv_times, dv_bounds, dv_at_warp = bilinear_parity["deepvoxels"]
     for key, line, counted in (("fwd", 111, "fwd"), ("bwd", 130, "bwd_vec4")):
         e = dict(

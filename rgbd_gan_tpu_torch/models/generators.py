@@ -1,8 +1,9 @@
-"""StyleGAN RGBD generator: mapping network and progressive synthesis (NHWC).
+"""RGBD generators: StyleGAN (mapping network and progressive synthesis) and
+DCGAN, NHWC.
 
-Port of the StyleGAN part of :mod:`rgbd_gan_tpu.models.generators`
-(reference ``net.py:22-354``). Progressive growing takes an integer
-``stage_floor`` (which blocks run) and a fade-in ``alpha``. Quirks kept:
+Port of the StyleGAN and DCGAN parts of :mod:`rgbd_gan_tpu.models.generators`
+(reference ``net.py:22-354`` and ``:603-773``). Progressive growing takes an
+integer ``stage_floor`` (which blocks run) and a fade-in ``alpha``. Quirks kept:
 
 - camera conditioning of blocks 0-1 via ``rotate_w`` (concat
   ``[w, theta*16]`` -> two lrelu-linears, ``net.py:220-224``); the fade-in
@@ -13,14 +14,19 @@ Port of the StyleGAN part of :mod:`rgbd_gan_tpu.models.generators`
   exist for checkpoint parity
 - ``stylegan_make_hidden`` divides the 2*ch-dim z by sqrt(sum/ch)
   (``net.py:333-343``)
+- DCGAN: the pose enters the stem linear as ``concat([z, theta*10])``, whose
+  output is reshaped in the reference's NCHW layout (``net.py:729-734``);
+  each block normalises with Chainer's ``F.normalize`` (an L2 norm over the
+  channels); a stage below 2 raises, as in the JAX package
+- eval mode (``train=False``) nearest-repeats an output below 64 px up to
+  64 px (``net.py:305-311``)
 
 ``compute_dtype=torch.bfloat16`` (the yml's ``mixed16``) runs the synthesis
-trunk in bf16 with float32 parameters; the mapping network, the toRGBD
-heads, the fade-in blend and the depth decode stay float32, and the output
-and the feature tap are float32.
+trunk (DCGAN: the stem and the blocks) in bf16 with float32 parameters; the
+mapping network, the toRGBD heads, the fade-in blend and the depth decode
+stay float32, and the output and the StyleGAN feature tap are float32.
 
-The eval-mode output upsampling and ``rotate_conv_input`` wait for the
-preview port.
+``rotate_conv_input`` and the occupancy network wait for their port.
 
 Parameter names follow the flax tree (``gen.block0.c1.weight`` is
 ``gen/block0/c1/kernel``), so :mod:`..bridge` maps one onto the other.
@@ -41,12 +47,14 @@ from ..nn.layers import (
     NoiseBlock,
     blur3x3,
     init_depth_head_,
+    l2_normalize_channels,
     leaky_relu,
     pixel_norm,
     upscale2x,
 )
 
 MAX_STAGE = 17
+MIN_SAMPLE_IMAGE_SIZE = 64  # eval-mode minimum output size (net.py:306)
 
 
 def stylegan_make_hidden(
@@ -56,6 +64,31 @@ def stylegan_make_hidden(
     ``2*ch`` (reference quirk)."""
     z = torch.randn(batch_size, ch * 2, generator=generator, device=device)
     return z / torch.sqrt(torch.sum(z * z, dim=1, keepdim=True) / ch + 1e-8)
+
+
+def dcgan_make_hidden(
+    generator: Optional[torch.Generator], batch_size: int, in_ch: int, device: torch.device | str = "cpu"
+) -> torch.Tensor:
+    """(B, in_ch) Gaussian normalised by sqrt(sum(z^2)/in_ch + 1e-8) (``net.py:697-707``)."""
+    z = torch.randn(batch_size, in_ch, generator=generator, device=device)
+    return z / torch.sqrt(torch.sum(z * z, dim=1, keepdim=True) / in_ch + 1e-8)
+
+
+def _rgbd_head(h: torch.Tensor, rgbd: bool) -> torch.Tensor:
+    """Inverse-depth decode of the last channel: ``1/(softplus(h) + 1e-4)``
+    (``net.py:294-299``)."""
+    if not rgbd:
+        return h
+    depth = 1.0 / (F.softplus(h[..., -1:]) + 1e-4)
+    return torch.cat([h[..., :3], depth], dim=-1)
+
+
+def _eval_upsample(h: torch.Tensor) -> torch.Tensor:
+    """Eval mode: nearest-repeat an output below 64 px up to 64 px (``net.py:305-311``)."""
+    if h.shape[1] >= MIN_SAMPLE_IMAGE_SIZE:
+        return h
+    scale = MIN_SAMPLE_IMAGE_SIZE // h.shape[1]
+    return h.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)
 
 
 class MappingNetwork(nn.Module):
@@ -169,6 +202,7 @@ class StyleGenerator(nn.Module):
         alpha,
         theta: Optional[torch.Tensor] = None,
         *,
+        train: bool = True,
         return_feature: bool = False,
     ):
         stage = min(int(stage_floor), MAX_STAGE - 1)
@@ -202,9 +236,9 @@ class StyleGenerator(nn.Module):
             h_1 = self.out(k + 1)(self.block(k + 1)(w, x=h).float())
             h = (1.0 - alpha) * h_0 + alpha * h_1
 
-        if self.rgbd:
-            depth = 1.0 / (F.softplus(h[..., -1:]) + 1e-4)
-            h = torch.cat([h[..., :3], depth], dim=-1)
+        h = _rgbd_head(h, self.rgbd)
+        if not train:
+            return _eval_upsample(h)
         if feat is not None:
             feat = feat.float()
         return (h, feat) if return_feature else h
@@ -236,10 +270,120 @@ class StyleGANGenerator(nn.Module):
         alpha,
         theta: Optional[torch.Tensor] = None,
         *,
+        train: bool = True,
         return_feature: bool = False,
     ):
         z = z.reshape(z.shape[0], -1)
         z1, z2 = torch.chunk(z, 2, dim=1)  # low-res / high-res styles
         w = self.mapping(z1)
         w2 = self.mapping(z2)
-        return self.gen(w, w2, stage_floor, alpha, theta, return_feature=return_feature)
+        return self.gen(w, w2, stage_floor, alpha, theta, train=train, return_feature=return_feature)
+
+
+class DCGANBlock(nn.Module):
+    """upsample -> conv -> bias -> lrelu -> L2-channel-normalise, twice
+    (``net.py:603-648``). The noise gains ``n0``/``n1`` exist for checkpoint
+    parity: noise is forced off, so they get no gradient."""
+
+    def __init__(self, ch: int, ch_in: int, enable_blur: bool = False, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.enable_blur = enable_blur
+        self.c0 = EqualizedConv2D(ch_in, ch, 3, 1, 1, use_bias=False, generator=generator)
+        self.n0 = NoiseBlock(ch)
+        self.b0 = nn.Parameter(torch.zeros(ch))
+        self.c1 = EqualizedConv2D(ch, ch, 3, 1, 1, use_bias=False, generator=generator)
+        self.n1 = NoiseBlock(ch)
+        self.b1 = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = upscale2x(x)
+        if self.enable_blur:
+            h = blur3x3(h)
+        h = l2_normalize_channels(leaky_relu(self.c0(h) + self.b0.to(h.dtype)))
+        return l2_normalize_channels(leaky_relu(self.c1(h) + self.b1.to(h.dtype)))
+
+
+class DCGANGenerator(nn.Module):
+    """Progressive DCGAN generator (``net.py:651-773``): a stem linear on
+    ``concat([z, theta*10])`` to a 4x4 map, then blocks at 8-128 px. The
+    trainer passes ``config.ch`` as ``in_ch`` while the hidden width ``ch``
+    stays 512 (``train_rgbd.py:229-232``)."""
+
+    def __init__(
+        self,
+        in_ch: int = 128,
+        ch: int = 512,
+        enable_blur: bool = False,
+        rgbd: bool = False,
+        initial_depth: float = 1.0,
+        compute_dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.ch, self.rgbd, self.compute_dtype = ch, rgbd, compute_dtype
+        self.linear = EqualizedLinear(in_ch + (9 if rgbd else 0), ch * 4 * 4, generator=generator)
+        chans = ((ch, ch), (ch, ch), (ch, ch), (ch // 2, ch), (ch // 4, ch // 2))  # 8 .. 128 px
+        out_ch = 4 if rgbd else 3
+        for i, (c_out, c_in) in enumerate(chans):
+            self.add_module(f"block{i}", DCGANBlock(c_out, c_in, enable_blur=enable_blur, generator=generator))
+            out = EqualizedConv2D(c_out, out_ch, 1, 1, 0, gain=1.0, generator=generator)
+            if rgbd:
+                init_depth_head_(out, initial_depth)
+            self.add_module(f"out{i}", out)
+
+    def block(self, i: int) -> DCGANBlock:
+        return getattr(self, f"block{i}")
+
+    def out(self, i: int) -> EqualizedConv2D:
+        return getattr(self, f"out{i}")
+
+    def _stem(self, z: torch.Tensor, theta: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            z = z.to(self.compute_dtype)
+            if theta is not None:
+                theta = theta.to(self.compute_dtype)
+        h = self.linear(torch.cat([z, theta * 10], dim=1) if self.rgbd else z)
+        # the reference's NCHW view of the stem vector, then NHWC
+        return h.reshape(z.shape[0], self.ch, 4, 4).permute(0, 2, 3, 1)
+
+    def forward(
+        self,
+        z: torch.Tensor,
+        stage_floor: int,
+        alpha,
+        theta: Optional[torch.Tensor] = None,
+        *,
+        train: bool = True,
+        return_feature: bool = False,
+    ):
+        stage = min(int(stage_floor), MAX_STAGE - 1)
+        if self.rgbd and theta is None:
+            raise ValueError("theta is required for an RGBD generator")
+        if stage < 2:
+            raise ValueError(
+                "DCGANGenerator requires stage >= 2 (the reference indexes outs[-1] "
+                "below that, which is a shape error there too)"
+            )
+        feat = None
+        h = self._stem(z.reshape(z.shape[0], -1), theta)
+        if stage % 2 == 0:
+            k = (stage - 2) // 2
+            for i in range(0, k + 1):  # 0 .. k
+                h = self.block(i)(h)
+                if return_feature and i == 2:
+                    feat = h
+            h = self.out(k)(h.float())
+        else:
+            k = (stage - 1) // 2
+            for i in range(0, k):  # 0 .. k-1
+                h = self.block(i)(h)
+                if return_feature and i == 2:
+                    feat = h
+            h_0 = upscale2x(self.out(k - 1)(h.float()))
+            h_1 = self.out(k)(self.block(k)(h).float())
+            h = (1.0 - alpha) * h_0 + alpha * h_1
+
+        h = _rgbd_head(h, self.rgbd)
+        if not train:
+            return _eval_upsample(h)
+        return (h, feat) if return_feature else h

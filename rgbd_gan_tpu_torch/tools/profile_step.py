@@ -1,10 +1,10 @@
 """Where one full-width train step spends its time on the card.
 
 ``python -m rgbd_gan_tpu_torch.tools.profile_step configs/deepvoxels_shapenet_car.yml``
-(or ``configs/ffhq_stylegan_occlusion.yml``, or a copy of either with
-``mixed16: True`` for the bf16 trunk) builds the port's trainer from the yml
+(or ``configs/ffhq_stylegan_occlusion.yml`` or ``configs/dcgan_shapenet_car.yml``;
+``--mixed16`` for the bf16 trunk) builds the port's trainer from the yml
 on synthetic images, with the 3D-consistency loss on from the first
-iteration and, for StyleGAN, the schedule pinned at the yml's last stage;
+iteration and, for StyleGAN and DCGAN, the schedule pinned at the yml's last stage;
 runs 3 warm-up steps, times ``--steps`` synchronised steps on the host
 clock, then traces 2 steps with ``torch.profiler`` and prints one
 JSON object: the card's name and power limit, the median wall time per step,
@@ -64,6 +64,7 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=8)
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--lift_mode", default=None, help="override the yml's lift_mode (deepvoxels)")
+    parser.add_argument("--mixed16", action="store_true", help="set the yml's mixed16: the bf16 trunk")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device; this tool measures only on a GPU", file=sys.stderr)
@@ -73,6 +74,8 @@ def main(argv=None) -> int:
     config.start_rotation = -1
     if args.lift_mode:
         config.lift_mode = args.lift_mode
+    if args.mixed16:
+        config.mixed16 = True
     if config.generator_architecture == "deepvoxels":
         image_px = 64
     else:  # pin the schedule at the yml's last stage

@@ -10,6 +10,8 @@ writes its mapping network to ``Map_{tag}.npz``. The trainer
 snapshot stores the optimizer moments under the optax state paths
 (``opt_gen/1/0/mu/...``), the iteration, and the state of the port's
 ``torch.Generator`` under ``rng_state`` (the JAX package stores a PRNG key).
+A DCGAN state has no mapping optimizer: like the JAX package's ``None``
+leaf, it writes and reads no ``opt_map/...`` key.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ def model_names(config) -> List[str]:
     return names
 
 
-def _opt_to_flat(opt: ClippedAdam, prefix: str) -> Dict[str, np.ndarray]:
+def _opt_to_flat(opt: Optional[ClippedAdam], prefix: str) -> Dict[str, np.ndarray]:
+    if opt is None:
+        return {}
     sd = opt.state_dict()
     flat = {f"{prefix}/1/0/count": np.asarray(sd["count"], dtype=np.int32)}
     for moment in ("mu", "nu"):
@@ -59,7 +63,9 @@ def _opt_to_flat(opt: ClippedAdam, prefix: str) -> Dict[str, np.ndarray]:
     return flat
 
 
-def _opt_from_flat(opt: ClippedAdam, flat: Dict[str, np.ndarray], prefix: str) -> None:
+def _opt_from_flat(opt: Optional[ClippedAdam], flat: Dict[str, np.ndarray], prefix: str) -> None:
+    if opt is None:
+        return
     state = {"count": int(flat[f"{prefix}/1/0/count"])}
     for moment in ("mu", "nu"):
         state[moment] = jax_to_torch(strip_prefix(flat, f"{prefix}/1/0/{moment}/"))

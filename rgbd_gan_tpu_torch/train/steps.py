@@ -7,7 +7,8 @@ One iteration:
  2. camera matrices and the 9-dim conditioning
  3. reals downsized to the stage resolution
  4. G loss: adversarial + 3D consistency + depth floor -> Adam updates of
-    the mapping (alpha/100) and synthesis domains
+    the mapping (alpha/100) and synthesis domains (StyleGAN), or of the
+    whole generator in one domain (DCGAN, which has no mapping network)
  5. EMA soft copy into the smoothed generator
  6. D loss on the *detached pre-update* fakes and the reals, plus the R1
     penalty by double backward -> Adam update. With ``r1_interval`` k > 1
@@ -41,6 +42,7 @@ class StepSpec:
 
     stage_floor: int
     batch_size: int
+    architecture: str = "stylegan"  # 'stylegan' | 'dcgan' ('deepvoxels' takes its own step)
     use_rotate: bool = False
     occlusion_aware: bool = False
     keep_smoothed_gen: bool = False
@@ -77,7 +79,7 @@ def make_rgbd_train_step(
     prior,
     spec: StepSpec,
 ):
-    """Build the StyleGAN RGBD train step for ``spec`` (exact bilinear
+    """Build the StyleGAN or DCGAN RGBD train step for ``spec`` (exact bilinear
     sampling, R1 every ``spec.r1_interval`` steps); raises
     ``NotImplementedError`` for the options that are not ported.
 
@@ -142,11 +144,14 @@ def make_rgbd_train_step(
             lam = spec.lambda_rotate if image_size <= 128 else spec.lambda_rotate * 2
             loss_gen = loss_gen + loss_rotate * lam
 
-        map_params = list(gen.mapping.parameters())
-        syn_params = list(gen.gen.parameters())
-        grads = torch.autograd.grad(loss_gen, map_params + syn_params, allow_unused=True)
-        state.opt_map.step(grads[: len(map_params)])
-        state.opt_gen.step(grads[len(map_params):])
+        if spec.architecture == "stylegan":
+            # two clipping domains: mapping (alpha/100) and synthesis
+            n_map = len(state.opt_map.params)
+            grads = torch.autograd.grad(loss_gen, state.opt_map.params + state.opt_gen.params, allow_unused=True)
+            state.opt_map.step(grads[:n_map])
+            state.opt_gen.step(grads[n_map:])
+        else:
+            state.opt_gen.step(torch.autograd.grad(loss_gen, state.opt_gen.params, allow_unused=True))
         gen.requires_grad_(False)
         if spec.keep_smoothed_gen and state.ema_gen is not None:
             soft_copy_params(state.ema_gen, gen, 1.0 - spec.smoothing)

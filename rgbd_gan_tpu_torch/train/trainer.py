@@ -1,24 +1,31 @@
-"""Training loop for the StyleGAN and DeepVoxels RGBD paths: builds models,
-optimizers and the step from a config and runs the iteration loop.
+"""Training loop for the StyleGAN, DCGAN and DeepVoxels RGBD paths: builds
+models, optimizers and the step from a config and runs the iteration loop.
 
-Port of the StyleGAN and DeepVoxels parts of :mod:`rgbd_gan_tpu.train.trainer`
-(reference ``train_rgbd.py:261-474``): model and optimizer wiring (mapping
-at alpha/100 in its own clipping domain; for StyleGAN ``l1``/``l2`` at
-alpha/100 inside the synthesis domain, for DeepVoxels one optimizer over the
-whole generator, mapping included), the piecewise-linear stage schedule
-(DeepVoxels is pinned at stage 8.5, 64 px), the per-iteration NaN guard, the
-reference's report keys, ``log.jsonl``, snapshots and resume. Float32 stays
-float32: TF32 is switched off for matmuls and convs. ``mixed16: True`` runs
-the generator's and the discriminator's trunks in bf16 (parameters,
-gradients, Adam state and EMA stay float32), with bf16 products accumulated
-in float32; ``r1_interval: k`` takes the StyleGAN step's R1 penalty every
-k-th step at weight ``lambda_gp * k``.
+Port of :mod:`rgbd_gan_tpu.train.trainer` without its mesh, profiler and
+step windows (reference ``train_rgbd.py:261-474``): model and optimizer
+wiring (mapping at alpha/100 in its own clipping domain; for StyleGAN
+``l1``/``l2`` at alpha/100 inside the synthesis domain, for DeepVoxels one
+optimizer over the whole generator, mapping included; DCGAN has no mapping
+and one optimizer over the whole generator), the piecewise-linear stage
+schedule (DeepVoxels is pinned at stage 8.5, 64 px), the per-iteration NaN
+guard, the reference's report keys, ``log.jsonl``, preview grids of the
+live and the smoothed generator every ``evaluation_sample_interval``
+iterations, snapshots and resume. Float32 stays float32: TF32 is switched
+off for matmuls and convs. ``mixed16: True`` runs the generator's and the
+discriminator's trunks in bf16 (parameters, gradients, Adam state and EMA
+stay float32), with bf16 products accumulated in float32;
+``r1_interval: k`` takes the 2D step's R1 penalty every k-th step at weight
+``lambda_gp * k``.
 
-Not on these paths yet, and refused: the DCGAN generator, spectral norm,
-``rotate_feature``, occupancy, ``use_mpi`` and ``step_window > 1``; lazy R1
-on the DeepVoxels step (as in the JAX package); of DeepVoxels the background generator,
-``rendernet_projection`` and ``occlusion_type: occlusion_unet``. Preview
-images wait for the eval port.
+``step_window: k`` is accepted and ignored: the JAX package chains k steps
+in one compiled scan whose arithmetic is that of k plain steps, and the
+port runs those k plain steps, on the same stream of draws, with a report
+row and the NaN guard after each.
+
+Not on these paths yet, and refused: spectral norm, ``rotate_feature``,
+``rotate_conv_input``, occupancy, ``use_mpi`` and ``rgb``; lazy R1 on the
+DeepVoxels step (as in the JAX package); of DeepVoxels the background
+generator, ``rendernet_projection`` and ``occlusion_type: occlusion_unet``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from __future__ import annotations
 import json
 import os
 import time
+import traceback
+import warnings
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -33,10 +42,11 @@ import torch
 
 from ..core.stage import decompose_stage, parse_stage_interval, stage_at
 from ..data.dataset import ImageDataset, prepare_dataset
+from ..eval.preview import sample_generate_light
 from ..geometry.prior import CameraParamPrior
 from ..models.discriminator import Discriminator
 from ..models.deepvoxels import build_deepvoxels_generator
-from ..models.generators import StyleGANGenerator, stylegan_make_hidden
+from ..models.generators import DCGANGenerator, StyleGANGenerator, dcgan_make_hidden, stylegan_make_hidden
 from . import checkpoint as ckpt
 from .ema import copy_params
 from .optim import make_optimizer, make_stylegan_gen_optimizer
@@ -59,7 +69,7 @@ REPORT_KEYS = [
 ]
 
 
-ARCHITECTURES = ("stylegan", "deepvoxels")
+ARCHITECTURES = ("stylegan", "dcgan", "deepvoxels")
 
 
 def _check_config(config) -> None:
@@ -81,7 +91,6 @@ def _check_config(config) -> None:
         "rotate_conv_input": bool(config.rotate_conv_input),
         "use_occupancy_net_loss": bool(config.use_occupancy_net_loss),
         "use_mpi": bool(config.use_mpi),
-        "step_window > 1": bool(config.step_window) and int(config.step_window) > 1,
         "nvprof": bool(config.nvprof) or bool(config.enable_cuda_profiling),
     }
     missing = [k for k, v in unported.items() if v]
@@ -105,6 +114,13 @@ def setup_generator(config, generator: Optional[torch.Generator] = None, on_cuda
     if config.generator_architecture == "deepvoxels":
         return build_deepvoxels_generator(config, generator, on_cuda)
     initial_depth = config.initial_depth if config.initial_depth is not None else 1.0
+    if config.generator_architecture == "dcgan":
+        gen = DCGANGenerator(
+            in_ch=config.ch,  # quirk: the hidden width stays the default 512
+            enable_blur=bool(config.enable_blur), rgbd=True, initial_depth=initial_depth,
+            compute_dtype=_compute_dtype(config), generator=generator,
+        )
+        return gen, (lambda g, n, device="cpu": dcgan_make_hidden(g, n, config.ch, device))
     gen = StyleGANGenerator(
         config.ch, enable_blur=bool(config.enable_blur), rgbd=True,
         initial_depth=initial_depth, compute_dtype=_compute_dtype(config), generator=generator,
@@ -160,16 +176,17 @@ class Trainer:
         a_g, a_d = config.adam_alpha_g, config.adam_alpha_d
         b1, b2 = config.adam_beta1, config.adam_beta2
         ema = copy_params(gen) if config.keep_smoothed_gen else None
+        if self.arch == "stylegan":
+            opt_gen = make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2)
+        else:
+            # dcgan: the whole generator; deepvoxels: the mapping is also
+            # inside the whole-generator optimizer (train_rgbd.py:335-343)
+            opt_gen = make_optimizer(gen.named_parameters(), a_g, b1, b2)
         self.state = TrainState(
             gen=gen,
             dis=dis,
-            opt_map=make_optimizer(gen.mapping.named_parameters(), a_g / 100, b1, b2),
-            # deepvoxels: the mapping is also inside the whole-generator
-            # optimizer (train_rgbd.py:335-343)
-            opt_gen=(
-                make_optimizer(gen.named_parameters(), a_g, b1, b2) if self.arch == "deepvoxels"
-                else make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2)
-            ),
+            opt_map=None if self.arch == "dcgan" else make_optimizer(gen.mapping.named_parameters(), a_g / 100, b1, b2),
+            opt_gen=opt_gen,
             opt_dis=make_optimizer(dis.named_parameters(), a_d, b1, b2),
             ema_gen=ema,
         )
@@ -180,6 +197,7 @@ class Trainer:
             dataset = prepare_dataset(config)
         self.iterator = ImageDataset(dataset, self.batch_size, seed=seed)
         self._step_cache: Dict[StepSpec, Callable] = {}
+        self._preview_warned = False
         self.out = config.out or "out"
 
     # ------------------------------------------------------------------
@@ -191,6 +209,8 @@ class Trainer:
         return StepSpec(
             stage_floor=stage_floor,
             batch_size=self.batch_size,
+            # the 2D step's generator (the DeepVoxels step reads none)
+            architecture="dcgan" if self.arch == "dcgan" else "stylegan",
             use_rotate=iteration > (c.start_rotation or 0),
             occlusion_aware=iteration >= (c.start_occlusion_aware or 0),
             keep_smoothed_gen=bool(c.keep_smoothed_gen),
@@ -222,6 +242,66 @@ class Trainer:
             return 8.5  # pinned (updater_deepvoxels.py:105-106)
         it = self.state.iteration if iteration is None else iteration
         return stage_at(it, self.stage_interval, self.max_stage)
+
+    @torch.no_grad()
+    def gen_apply_eval(self, z, stage_floor, alpha, theta9, mats=None, *, use_ema=False, z2=None):
+        """Eval-mode generator forward (``train=False``), without gradients.
+
+        ``use_ema`` renders from the smoothed generator, the model the
+        reference previews when ``keep_smoothed_gen`` (``train_rgbd.py:391-396``).
+        DeepVoxels runs its BatchNorm on the running statistics (of the live
+        generator, also for the smoothed one, as in the JAX package) and
+        takes the second style latent ``z2``; by default it is the JAX
+        package's fixed draw: ``RandomState(1)`` tiled over 8 columns like
+        the preview's z, or one draw per sample for a batch that is not a
+        grid of 8 columns (``train_rgbd.py:70-71``).
+        """
+        gen = self.state.gen
+        if use_ema:
+            if self.state.ema_gen is None:
+                raise ValueError("use_ema requires keep_smoothed_gen (no EMA parameters in the state)")
+            gen = self.state.ema_gen
+            for mine, live in zip(gen.buffers(), self.state.gen.buffers()):
+                mine.copy_(live)
+        z, theta9 = torch.as_tensor(z, device=self.device), torch.as_tensor(theta9, device=self.device)
+        if self.arch != "deepvoxels":
+            return gen(z, stage_floor, float(alpha), theta9, train=False)
+        if z2 is None:
+            rng, cols = np.random.RandomState(1), 8
+            rows = z.shape[0] // cols
+            if rows * cols == z.shape[0]:
+                z2 = np.tile(self.make_hidden_np(rng, cols)[:, None], (1, rows, 1)).reshape(z.shape[0], -1)
+            else:
+                z2 = self.make_hidden_np(rng, z.shape[0])
+        z2 = torch.as_tensor(z2, device=self.device)
+        return gen(z, torch.as_tensor(mats, device=self.device), z2, theta9, train=False)
+
+    def gen_apply_eval_ema(self, z, stage_floor, alpha, theta9, mats=None, *, z2=None):
+        """The smoothed generator's eval forward (see :meth:`gen_apply_eval`)."""
+        return self.gen_apply_eval(z, stage_floor, alpha, theta9, mats, use_ema=True, z2=z2)
+
+    def make_hidden_np(self, rng: np.random.RandomState, n: int) -> np.ndarray:
+        """Host-side latents from a ``RandomState``, for fixed-seed previews."""
+        ch = self.config.ch
+        if self.arch == "deepvoxels":
+            return rng.normal(size=(n, ch)).astype("float32")
+        z = rng.normal(size=(n, ch * 2 if self.arch == "stylegan" else ch)).astype("float32")
+        return z / np.sqrt((z**2).sum(axis=1, keepdims=True) / ch + 1e-8)
+
+    def _preview(self, previews, iteration: int) -> None:
+        """Render the preview grids; a failure warns once and training goes on."""
+        try:
+            for preview in previews:
+                preview(iteration, self.stage(iteration))
+        except Exception:
+            # best-effort, but never silently: a broken preview path should
+            # not go unnoticed for a whole run
+            if not self._preview_warned:
+                self._preview_warned = True
+                warnings.warn(
+                    "preview rendering failed (training continues; further failures suppressed):\n"
+                    + traceback.format_exc()
+                )
 
     # ------------------------------------------------------------------
 
@@ -255,7 +335,12 @@ class Trainer:
         total = iterations if iterations is not None else c.iteration
         snapshot_interval = c.snapshot_interval or 10000
         display_interval = c.display_interval or 100
-        print("preview images are not written: they wait for the eval port")
+        preview_interval = c.evaluation_sample_interval or 500
+        previews = [sample_generate_light(self.gen_apply_eval, self.make_hidden_np, self.out, c)]
+        if c.keep_smoothed_gen:
+            # the smoothed generator into its own directory (train_rgbd.py:391-396)
+            previews.append(sample_generate_light(
+                self.gen_apply_eval_ema, self.make_hidden_np, self.out, c, subdir="preview_smoothed"))
 
         start_time = time.time()
         last_log: Dict[str, Any] = {}
@@ -283,6 +368,8 @@ class Trainer:
                 os.makedirs(self.out, exist_ok=True)
                 with open(os.path.join(self.out, "log.jsonl"), "a") as f:
                     f.write(json.dumps(row) + "\n")
+            if it % preview_interval == 0:
+                self._preview(previews, it)
             if it % snapshot_interval == 0:
                 self.save(str(it))
         self.save("latest")

@@ -44,6 +44,11 @@ def test_sources_found():
         "rgbd_gan_tpu_torch/train/steps_deepvoxels.py", "rgbd_gan_tpu_torch/ops/conv.py",
         "rgbd_gan_tpu_torch/tools/bench_conv.py",
     } <= found
+    # and the preview and eval modules with their CLI
+    assert {
+        "rgbd_gan_tpu_torch/eval/preview.py", "rgbd_gan_tpu_torch/eval/inception.py",
+        "rgbd_gan_tpu_torch/eval/fid.py", "rgbd_gan_tpu_torch/cli/evaluate.py",
+    } <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -234,10 +234,12 @@ def test_step_refuses_unported_options(option):
 
 
 def test_unported_options_raise():
+    """SN is not ported and raises; ``step_window`` is accepted (the window
+    runs as plain steps)."""
     with pytest.raises(NotImplementedError):
         Trainer(Config(dict(CFG, sn=True)), dataset=synthetic_dataset(4, 32), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(Config(dict(CFG, step_window=4)), dataset=synthetic_dataset(4, 32), device="cpu")
+    trainer = Trainer(Config(dict(CFG, step_window=4)), dataset=synthetic_dataset(4, 32), device="cpu")
+    assert trainer.config.step_window == 4
 
 
 def test_trainer_without_a_device_needs_a_card():
