@@ -6,7 +6,8 @@ Phases, each printing one line; any failure exits non-zero:
    builds the bilinear-gather, trilinear-lift and the two 3x3-conv kernel
    sources from `rgbd_gan_tpu_torch/csrc/`, one nvcc for each source, all at
    once; prints ptxas's registers, shared memory and spills of the FMA
-   conv and the vectorised lift and bilinear backward kernels, and fails
+   conv, the vectorised lift and bilinear backward kernels and the bilinear
+   kernels with a group of lanes per point (at C = 257 and C = 3), and fails
    unless the tensor-core conv's SASS holds HGMMA (Hopper's warpgroup MMA)
    and the lift's and the bilinear gather's each a vector reduction of 4
    floats (`red.global.add.v4.f32`).
@@ -23,8 +24,12 @@ Phases, each printing one line; any failure exits non-zero:
    models it (counted in Python, not on the card). Then at the feature
    3D-consistency loss's shapes (`rotate_feature`: D's 32x32 tap of ch 256
    features plus one depth channel, B=32, H=W=32, C=257, N=1024, exact),
-   where K1 runs its scalar-channel instance and K2 its thread-per-point
-   kernel alone, the same checks and yardsticks.
+   where K1 and K2 run their kernels with a warp per point, the same checks
+   and yardsticks, with each of them and the old thread-per-point kernel in
+   turns (generic, lanes, lanes, generic), and a third set of points: those
+   the feature loss gathers at (its depth the pooled blue channel of the
+   main paths' synthetic real batch, cameras from the yml's prior). Each
+   set's in-bounds share is printed (`[kernel_bounds]`).
 3. trilinear kernel parity at the DeepVoxels step's shapes (B=10, G=32,
    C=32, N=56*64*64 frustum cells under cameras from the yml's prior): K3,
    K4 and the windowed pair K5, float32 and bf16 operands, against the plain
@@ -103,8 +108,8 @@ Phases, each printing one line; any failure exits non-zero:
    `rotate_feature`, `use_occupancy_net_loss` and `rotate_conv_input` (the
    SN vectors after the step held too), and with `rotate_feature` and R1,
    which adds the feature-gradient penalty. The rotate-feature steps launch
-   K1 three times (the RGBD gather, and a feature gather at C = ch + 1 in
-   each phase), the vectorised K2 once and the thread-per-point K2 twice.
+   the vectorised K1 and K2 once each (the RGBD gather) and the lanes K1
+   and K2 twice each (a feature gather at C = ch + 1 in each phase).
 17. the full-width paths of phase 16 through the CLI's run function:
    `deepvoxels_shapenet_car.yml` with `background_generator: True` for 5
    iterations (no preview inside the run: the JAX package has no eval
@@ -112,7 +117,7 @@ Phases, each printing one line; any failure exits non-zero:
    and `ffhq_stylegan_occlusion.yml` (ch 256, batch 32, 128 px) with `sn`,
    `rotate_feature`, `use_occupancy_net_loss` and `rotate_conv_input` for 5,
    each with its launch counts asserted and its ms/step and peak memory
-   printed.
+   printed; for the last, the in-bounds share of its feature gathers.
 
 Each path (the benchmark of phase 4, the runs of phases 7-9, 11, 12, 14,
 15 and 17, and the two evaluations) is driven with every kernel's launch
@@ -121,8 +126,9 @@ is printed before the kernels line. The line before the last is a JSON object de
 each kernel (its time beside its bound, the plain version's time and, where
 one exists, a single PyTorch call's; K6's two kernels, FMA and tensor
 cores, one entry each; K2 and the lift's with the old kernel's time in
-turns; K1 and K2 with `launches_by_path` over every path above and their
-figures `at_rotate_feature_shapes`); the last is
+turns; K1 and K2 with the kernels by C, `launches_by_path` over every path
+above, `launches_by_kernel`, and their figures `at_rotate_feature_shapes`,
+there with the old kernel's time in turns too); the last is
 `{"ok": true, "device": {...}}`. There is no CPU path: without a card the
 script exits with an error.
 """
@@ -218,22 +224,38 @@ BILINEAR_SHAPES = {
 }
 BILINEAR_EXACT_MODES = {"stylegan": (True, False), "deepvoxels": (True, False), "rotate_feature": (True,)}
 LIFT_SHAPE = dict(B=10, G=32, C=32, N=56 * 64 * 64)
-# the bilinear kernels' launch counts after one train step on the card
-BILINEAR_ONE_STEP = {"fwd": 1, "bwd": 0, "bwd_vec4": 1}
+# the bilinear kernels' launch counts after one train step on the card: the
+# RGBD gather (C = 4) on the vectorised K1 and K2; the thread-per-point
+# kernels (`fwd` at any C other than 4, `bwd`) never
+BILINEAR_NONE = {"fwd": 0, "fwd_lanes": 0, "bwd": 0, "bwd_vec4": 0, "bwd_lanes": 0}
+BILINEAR_ONE_STEP = dict(BILINEAR_NONE, fwd=1, bwd_vec4=1)
 # with the background generator: the foreground and the background terms
 # each gather once (C = 4)
-BILINEAR_BACKGROUND_STEP = {"fwd": 2, "bwd": 0, "bwd_vec4": 2}
+BILINEAR_BACKGROUND_STEP = dict(BILINEAR_NONE, fwd=2, bwd_vec4=2)
 # with rotate_feature: the RGBD gather (C = 4) and one feature gather (C =
-# ch + 1) in each phase; both feature gathers differentiate into the image
-# (through D into G in the G phase, into D in the D phase), on the thread-
-# per-point K2
-BILINEAR_ROTATE_FEATURE_STEP = {"fwd": 3, "bwd": 2, "bwd_vec4": 1}
+# ch + 1, a group of lanes a point) in each phase; both feature gathers
+# differentiate into the image (through D into G in the G phase, into D in
+# the D phase)
+BILINEAR_ROTATE_FEATURE_STEP = dict(BILINEAR_NONE, fwd=1, fwd_lanes=2, bwd_vec4=1, bwd_lanes=2)
 # the lift's launch counts with nothing launched
 LIFT_NONE = {k: 0 for k in ("fwd", "fwd_vec4", "bwd", "bwd_vec4", "fwd_win", "fwd_win_vec4", "bwd_win",
                             "bwd_win_vec4")}
 # the kernel sources of `rgbd_gan_tpu_torch/csrc/`, one nvcc each, all at once
 SOURCES = ("bilinear", "trilinear", "conv3x3", "conv3x3_tc")
-NEW_KERNELS = ("conv3x3_kernel", "lift_bwd_vec4_kernel", "bilinear_bwd_vec4_kernel")  # ptxas figures printed
+
+
+def lanes_instance(direction: str, exact: bool, c: int) -> str:
+    """The lanes kernel's instance that ``dispatch_lanes`` in
+    ``csrc/bilinear.cu`` launches at C = ``c``: L = min(32, the power of two
+    >= C) lanes a point, and 9 channels a lane in registers at L = 32, else 1."""
+    lanes = min(32, 1 << max(0, c - 1).bit_length())
+    return f"bilinear_{direction}_lanes_kernel<{str(exact).lower()}, {lanes}, {9 if lanes == 32 else 1}>"
+
+
+# ptxas figures printed: the lanes kernels' instances at C = 257 (a warp a
+# point) and at C = 3 (4 lanes a point)
+NEW_KERNELS = ("conv3x3_kernel", "lift_bwd_vec4_kernel", "bilinear_bwd_vec4_kernel") + tuple(
+    lanes_instance(d, e, c) for d in ("fwd", "bwd") for e in (True, False) for c in (257, 3))
 # published peaks of one H100 SXM: HBM bytes/s and f32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -446,10 +468,11 @@ def _time_ms(torch, fn, reps: int = 20, attempts: int = 3):
     return None, wall
 
 
-def _warp_points(torch, path: str, gen):
+def _warp_points(torch, path: str, gen, depth=None):
     """The points the 3D-consistency loss gathers at (``rotate_consistency_loss``):
-    B/2 camera pairs from the path's yml prior, both warp directions over a
-    smooth depth map, batched as the loss batches them; (u, v), each (B, H*W)."""
+    B/2 camera pairs from the path's yml prior, both warp directions over
+    ``depth`` (B, H, W), by default a smooth depth map, batched as the loss
+    batches them; (u, v), each (B, H*W)."""
     from rgbd_gan_tpu_torch.core.config import Config
     from rgbd_gan_tpu_torch.geometry.camera import camera_matrices
     from rgbd_gan_tpu_torch.geometry.prior import CameraParamPrior
@@ -461,11 +484,12 @@ def _warp_points(torch, path: str, gen):
     values = DEEPVOXELS_SHAPENET_CAR if path == "deepvoxels" else FFHQ_STYLEGAN_OCCLUSION
     half = b // 2
     mats = camera_matrices(CameraParamPrior(Config(values)).sample(gen, b, "cuda"))
-    ys = torch.linspace(0.0, 1.0, h, device="cuda")[:, None]
-    xs = torch.linspace(0.0, 1.0, w, device="cuda")[None, :]
-    phase = torch.rand(b, 2, 1, 1, generator=gen, device="cuda") * (2 * math.pi)
-    depth = values["depth_min"] + 0.5 + 0.25 * torch.sin(2 * math.pi * xs + phase[:, 0]) * torch.cos(
-        2 * math.pi * ys + phase[:, 1])
+    if depth is None:
+        ys = torch.linspace(0.0, 1.0, h, device="cuda")[:, None]
+        xs = torch.linspace(0.0, 1.0, w, device="cuda")[None, :]
+        phase = torch.rand(b, 2, 1, 1, generator=gen, device="cuda") * (2 * math.pi)
+        depth = values["depth_min"] + 0.5 + 0.25 * torch.sin(2 * math.pi * xs + phase[:, 0]) * torch.cos(
+            2 * math.pi * ys + phase[:, 1])
     z = depth.reshape(b, 1, h * w)
     k = intrinsics(w, device="cuda")
     inv_k = torch.linalg.inv(k)
@@ -474,6 +498,21 @@ def _warp_points(torch, path: str, gen):
     zp = torch.cat([warp(k, inv_k, r, t, z[:half], p), inv_warp(k, inv_k, r.transpose(1, 2), t, z[half:], p)])
     zc = torch.clamp(zp[..., 2], CLIP_Z_MIN, CLIP_Z_MAX)
     return (zp[..., 1] / zc).contiguous(), (zp[..., 0] / zc).contiguous()
+
+
+def _feature_points(torch, gen):
+    """The points the feature 3D-consistency loss gathers at
+    (``train/steps.py:_feature_rotate_loss``): its depth is the blue channel
+    of the real batch in [-1, 1] (the main paths' synthetic images, the first
+    B of them at 128 px), average-pooled to the 32x32 feature tap, under
+    cameras from ``ffhq_stylegan_occlusion.yml``'s prior."""
+    from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
+    from rgbd_gan_tpu_torch.train.losses import _avg_pool_by
+
+    b, h = BILINEAR_SHAPES["rotate_feature"]["B"], BILINEAR_SHAPES["rotate_feature"]["H"]
+    real = torch.from_numpy(synthetic_dataset(64, 128)[:b].transpose(0, 2, 3, 1).copy()).cuda()
+    depth = _avg_pool_by(real.to(torch.float32)[..., -1:] / 127.5 - 1.0, 128 // h)
+    return _warp_points(torch, "rotate_feature", gen, depth[..., 0])
 
 
 def _device_or_wall(ms) -> float:
@@ -488,12 +527,19 @@ def _in_turns(torch, calls: dict, order):
     return {k: statistics.mean(t for k_, t in turns if k_ == k) for k in set(order)}, [round(t, 4) for _, t in turns]
 
 
+# the launch count that each route of K1 and K2 moves
+FWD_KEYS = {"vec4": "fwd", "generic": "fwd", "lanes": "fwd_lanes"}
+BWD_KEYS = {"vec4": "bwd_vec4", "generic": "bwd", "lanes": "bwd_lanes"}
+
+
 def phase_kernels(torch, path: str):
     """K1 and K2 against the plain version at the shapes ``path`` gives them,
-    on uniform random points and on the points the 3D loss gathers at; K2's
-    two kernels in turns where both take the call (C = 4; any other C takes
-    the thread-per-point kernel alone); one PyTorch call for each beside
-    them."""
+    on uniform random points, on the points the 3D loss gathers at and, at
+    the feature loss's shapes, on the points that loss gathers at; each
+    kernel and the old thread-per-point one in turns where both take the
+    call (K2 at every C, K1 at C != 4; at C = 4 the old forward is the
+    vectorised one); one PyTorch call for each beside them. Returns the
+    largest errors and, by point set, the exact mode's times and bounds."""
     from rgbd_gan_tpu_torch.ops import bilinear
     from rgbd_gan_tpu_torch.tools import bilinear_yardstick as yardstick
 
@@ -507,29 +553,40 @@ def phase_kernels(torch, path: str):
     v[:, ::5] = torch.floor(v[:, ::5])
     cot = torch.randn(b, n, c, generator=g, device="cuda")
     points = {"random": (u, v), "warp": _warp_points(torch, path, g)}
+    if path == "rotate_feature":
+        points["feature"] = _feature_points(torch, g)
     vec4 = c == 4
-    if bilinear.bwd_route(c) != ("vec4" if vec4 else "generic"):
-        raise AssertionError(f"K2's inputs (C={c}) do not take the kernel expected")
-    routes = ("vec4", "generic") if vec4 else ("generic",)
+    if (bilinear.fwd_route(c), bilinear.bwd_route(c)) != (("vec4",) * 2 if vec4 else ("lanes",) * 2):
+        raise AssertionError(f"K1/K2's inputs (C={c}) do not take the kernels expected")
+    fwd_routes = ("vec4",) if vec4 else ("lanes", "generic")
+    bwd_routes = (bilinear.bwd_route(c), "generic")
     duv_atol = DUV_ATOL * math.sqrt(c / 4)
     errs = {"fwd": 0.0, "bwd": 0.0}
-    times, bounds, at_warp = {}, {}, {}
+    by_points = {}
     for kind, (pu, pv) in points.items():
         for exact in BILINEAR_EXACT_MODES[path]:
             bound, in_bounds = _gather_bounds(torch, img, pu, pv, exact)
             log("kernel_bounds", shapes=path, points=kind, exact=exact, fwd=json.dumps(bound["fwd"]),
-                bwd=json.dumps(bound["bwd"]), in_bounds_points=in_bounds, of=b * n)
-            out = bilinear._fwd(img, pu, pv, exact)
-            torch.cuda.synchronize()
+                bwd=json.dumps(bound["bwd"]), in_bounds_points=in_bounds, of=b * n,
+                in_bounds_share=f"{in_bounds / (b * n):.4f}")
             ref = bilinear.bilinear_gather_reference(img, pu, pv, exact)
-            e_fwd = (out - ref).abs().max().item()
+            fwd_errs = {}
+            for route in fwd_routes:
+                before = dict(bilinear.launches)
+                out = bilinear._fwd(img, pu, pv, exact, route=route)
+                torch.cuda.synchronize()
+                key = FWD_KEYS[route]
+                if bilinear.launches != {**before, key: before[key] + 1}:
+                    raise AssertionError(f"K1 route {route} launched {bilinear.launches} (before {before})")
+                fwd_errs[route] = (out - ref).abs().max().item()
+            e_fwd = max(fwd_errs.values())
             rdimg, rdu, rdv = bilinear.bilinear_gather_reference_vjp(img, pu, pv, cot, exact)
             bwd_errs, bwd_ok = {}, True
-            for route in routes:
+            for route in bwd_routes:
                 before = dict(bilinear.launches)
                 dimg, du, dv = bilinear._bwd(img, pu, pv, cot, exact, route=route)
                 torch.cuda.synchronize()
-                key = "bwd_vec4" if route == "vec4" else "bwd"
+                key = BWD_KEYS[route]
                 if bilinear.launches != {**before, key: before[key] + 1}:
                     raise AssertionError(f"K2 route {route} launched {bilinear.launches} (before {before})")
                 bwd_errs[route] = {"dimg": (dimg - rdimg).abs().max().item(), "du": (du - rdu).abs().max().item(),
@@ -561,22 +618,29 @@ def phase_kernels(torch, path: str):
                 "bwd_library": lambda: yardstick.grid_sampler_backward(img, grid, cot),
             }
             ms = {k: _time_ms(torch, fn) for k, fn in calls.items()}
-            fields = {}
+            t = {k: _device_or_wall(v) for k, v in ms.items()}
+            # the thread-per-point kernel (the first port's) and the new one, in turns
+            fields, record = {}, dict(t)
+            for key, routes, run in (("fwd", fwd_routes, bilinear._fwd), ("bwd", bwd_routes, bilinear._bwd)):
+                if len(routes) < 2:
+                    continue
+                new = routes[0]
+                args = (img, pu, pv) + ((cot,) if key == "bwd" else ())
+                in_turns = {r: (lambda r=r: run(*args, exact, route=r)) for r in routes}
+                turns, turn_list = _in_turns(torch, in_turns, ("generic", new, new, "generic"))
+                fields.update({f"{key}_turns_ms": json.dumps(turn_list),
+                               f"{key}_generic_over_{new}": f"{turns['generic'] / turns[new]:.3f}"})
+                record.update({f"{key}_generic": turns["generic"], f"{key}_in_turns": turns[new]})
             if vec4:
-                # the thread-per-point backward (the first port's) and the vectorised one, in turns
-                in_turns = {r: (lambda r=r: bilinear._bwd(img, pu, pv, cot, exact, route=r)) for r in routes}
-                turns, turn_list = _in_turns(torch, in_turns, ("generic", "vec4", "vec4", "generic"))
                 merge = yardstick.modelled_merge_factor(pu, pv, h, w, exact)
-                fields.update(bwd_turns_ms=json.dumps(turn_list),
-                              bwd_generic_over_vec4=f"{turns['generic'] / turns['vec4']:.3f}",
-                              modelled_corner_additions_per_reduction=f"{merge:.3f}")
+                fields.update(modelled_corner_additions_per_reduction=f"{merge:.3f}")
+                record.update(modelled_corner_additions_per_reduction=merge)
             for k, (dev, wall) in ms.items():
                 fields[f"{k}_device_ms"] = "none" if dev is None else f"{dev:.4f}"
                 fields[f"{k}_wall_ms"] = f"{wall:.4f}"
-            t = {k: _device_or_wall(v) for k, v in ms.items()}
             log(
                 "kernels", shapes=path, points=kind, B=b, H=h, W=w, C=c, N=n, exact=exact,
-                fwd_max_abs_err=f"{e_fwd:.3e}", bwd_max_abs_err=json.dumps(bwd_errs),
+                fwd_max_abs_err=json.dumps(fwd_errs), bwd_max_abs_err=json.dumps(bwd_errs),
                 library_max_abs_err=json.dumps(lib_errs), **fields,
                 fwd_share_of_bound=f"{bound['fwd']['bound_ms'] / t['fwd']:.3f}",
                 bwd_share_of_bound=f"{bound['bwd']['bound_ms'] / t['bwd']:.3f}",
@@ -587,26 +651,14 @@ def phase_kernels(torch, path: str):
                 raise AssertionError(f"kernel parity failed ({path} shapes, {kind} points, exact={exact})")
             if not lib_ok:
                 raise AssertionError(f"library calls disagree with the plain version ({path}, {kind}, exact={exact})")
-            errs["fwd"] = max(errs["fwd"], e_fwd)
-            errs["bwd"] = max(errs["bwd"], *bwd_errs[routes[0]].values())
+            # the kernels that the main path runs
+            e_fwd, e_bwd = fwd_errs[fwd_routes[0]], max(bwd_errs[bwd_routes[0]].values())
+            errs["fwd"], errs["bwd"] = max(errs["fwd"], e_fwd), max(errs["bwd"], e_bwd)
             if exact:  # the main path runs exact mode
-                record = dict(t)
-                if vec4:
-                    record.update(bwd_generic=turns["generic"], bwd_in_turns=turns["vec4"],
-                                  modelled_corner_additions_per_reduction=merge)
-                if kind == "random":
-                    times, bounds = record, bound
-                else:
-                    at_warp = {"ms": t["bwd"], "library_ms": t["bwd_library"], "plain_ms": t["bwd_plain"],
-                               "bound_ms": bound["bwd"]["bound_ms"], "in_bounds_points": in_bounds}
-                    if vec4:
-                        at_warp.update(generic_ms=turns["generic"], in_turns_ms=turns["vec4"],
-                                       modelled_corner_additions_per_reduction=merge)
-                    else:
-                        at_warp.update(fwd_ms=t["fwd"], fwd_plain_ms=t["fwd_plain"], fwd_library_ms=t["fwd_library"],
-                                       fwd_bound_ms=bound["fwd"]["bound_ms"], fwd_max_abs_err=e_fwd,
-                                       bwd_max_abs_err=max(bwd_errs["generic"].values()))
-    return errs, times, bounds, at_warp
+                record.update(bounds=bound, in_bounds_points=in_bounds, fwd_max_abs_err=e_fwd,
+                              bwd_max_abs_err=e_bwd)
+                by_points[kind] = record
+    return errs, by_points
 
 
 def _gather_bounds(torch, img, u, v, exact: bool):
@@ -1466,13 +1518,42 @@ def phase_family_step_parity(torch):
                           BILINEAR_ROTATE_FEATURE_STEP)
 
 
+def _watch_feature_gathers():
+    """Wraps K1's wrapper so that every gather at C != 4 (the feature
+    3D-consistency loss's) keeps its image's height and width and its u and
+    v, by reference: no work on the card and no synchronisation inside the
+    timed run. Returns that list and the function that unwraps it."""
+    from rgbd_gan_tpu_torch.ops import bilinear
+
+    fwd, gathers = bilinear._fwd, []
+
+    def watched(img, u, v, exact, route=None):
+        if img.shape[3] != 4:
+            gathers.append((img.shape[1], img.shape[2], u, v))
+        return fwd(img, u, v, exact, route)
+
+    bilinear._fwd = watched
+
+    def undo():
+        bilinear._fwd = fwd
+
+    return gathers, undo
+
+
+def _in_bounds(gathers) -> tuple:
+    """The in-bounds points of the gathers that :func:`_watch_feature_gathers`
+    kept, and their count of points, counted once the run is over."""
+    inside = sum(int(((u >= 0) & (u < h - 1) & (v >= 0) & (v < w - 1)).sum()) for h, w, u, v in gathers)
+    return inside, sum(u.numel() for _, _, u, _ in gathers)
+
+
 def phase_family_paths(torch, has_yaml: bool):
     """Phase 17: the full-width paths of this slice through the CLI's run
     function, with their launch counts asserted (per iteration: the
     background run K1 and the vectorised K2 twice; the SN/rotate-feature run
-    K1 three times, the vectorised K2 once and the thread-per-point K2
-    twice; the lift, on the DeepVoxels runs, twice forward and once
-    backward)."""
+    the vectorised K1 and K2 once and the lanes K1 and K2 twice, with the
+    in-bounds share of those feature gathers; the lift, on the DeepVoxels
+    runs, twice forward and once backward)."""
     paths, lift = {}, {}
     paths["deepvoxels_background"], lift["deepvoxels_background"], _ = _drive(
         torch, has_yaml, "main_path_deepvoxels_background", DEEPVOXELS_BACKGROUND, 64,
@@ -1483,9 +1564,16 @@ def phase_family_paths(torch, has_yaml: bool):
     for name, n in (("deepvoxels_background", 5), ("deepvoxels_rendernet", 3)):
         if lift[name] != {**LIFT_NONE, "fwd_win_vec4": 2 * n, "bwd_win_vec4": n}:
             raise AssertionError(f"{name}: lift launches {lift[name]}")
-    paths["stylegan_sn_rotate_feature"], lift_sn, files = _drive(
-        torch, has_yaml, "main_path_sn_rotate_feature", FFHQ_SN_ROTATE_FEATURE, 128,
-        "ffhq_stylegan_occlusion_sn_rotate_feature", bilinear_per_step=BILINEAR_ROTATE_FEATURE_STEP)
+    gathers, undo = _watch_feature_gathers()
+    try:
+        paths["stylegan_sn_rotate_feature"], lift_sn, files = _drive(
+            torch, has_yaml, "main_path_sn_rotate_feature", FFHQ_SN_ROTATE_FEATURE, 128,
+            "ffhq_stylegan_occlusion_sn_rotate_feature", bilinear_per_step=BILINEAR_ROTATE_FEATURE_STEP)
+    finally:
+        undo()
+    inside, points = _in_bounds(gathers)
+    log("main_path_sn_rotate_feature_gathers", gathers=len(gathers), in_bounds_points=inside, of=points,
+        in_bounds_share=f"{inside / points:.4f}")
     if any(lift_sn.values()):
         raise AssertionError(f"sn/rotate-feature path: the StyleGAN step launched the lift {lift_sn}")
     return paths, lift
@@ -1508,7 +1596,6 @@ def main() -> int:
     started = time.perf_counter()
     has_yaml = phase_device(torch)
     bilinear_parity = {path: phase_kernels(torch, path) for path in BILINEAR_SHAPES}
-    errs, times, bounds, at_warp = bilinear_parity["stylegan"]
     lift_errs, lift_times, lift_bounds = phase_lift_kernels(torch)
     conv_records, conv_launches, conv_compared, conv_versus_library = phase_conv(torch)
     phase_step_parity(torch)
@@ -1536,37 +1623,47 @@ def main() -> int:
     pallas = "rgbd_gan_tpu/ops/%s_pallas.py:%d"
     kernels = []
     # the bilinear pair runs on every training path: `launches` is the sum of
-    # the runs' counts, the other numbers are those at the StyleGAN shapes
-    # (the DCGAN step's too), and the DeepVoxels shapes' stand beside them
-    dv_errs, dv_times, dv_bounds, dv_at_warp = bilinear_parity["deepvoxels"]
-    rf_errs, rf_times, rf_bounds, rf_at_warp = bilinear_parity["rotate_feature"]
-    for key, line, counted in (("fwd", 111, ("fwd",)), ("bwd", 130, ("bwd_vec4", "bwd"))):
+    # the runs' counts, the other numbers are those at the StyleGAN shapes on
+    # random points (the DCGAN step's too); the DeepVoxels shapes' and the
+    # feature 3D-consistency loss's (C = 257) stand beside them, each on
+    # every set of points
+    def figures(path, key, kind):
+        r = bilinear_parity[path][1][kind]
+        f = {"max_abs_err": r[key + "_max_abs_err"], "ms": r[key], "plain_ms": r[key + "_plain"],
+             "library_ms": r[key + "_library"], "bound_ms": r["bounds"][key]["bound_ms"],
+             "bound_by": r["bounds"][key]["bound_by"], "in_bounds_points": r["in_bounds_points"]}
+        if key + "_generic" in r:  # the thread-per-point kernel, timed in turns with the path's
+            f.update(generic_ms=r[key + "_generic"], in_turns_ms=r[key + "_in_turns"])
+        if key == "bwd" and "modelled_corner_additions_per_reduction" in r:
+            f["modelled_corner_additions_per_reduction"] = r["modelled_corner_additions_per_reduction"]
+        return f
+
+    for key, line, counted, kernel in (
+            ("fwd", 111, ("fwd", "fwd_lanes"), "bilinear_fwd_kernel<EXACT, true> (C = 4), bilinear_fwd_lanes_kernel "
+             "(other C)"),
+            ("bwd", 130, ("bwd_vec4", "bwd_lanes", "bwd"), "bilinear_bwd_vec4_kernel (C = 4), "
+             "bilinear_bwd_lanes_kernel (other C)")):
+        wide = lanes_instance(key, True, BILINEAR_SHAPES["rotate_feature"]["C"])
+        top = figures("stylegan", key, "random")
         e = dict(
             entry("bilinear_gather_" + key, bil, pallas % ("bilinear", line),
                   sum(counts[k] for counts in by_path.values() for k in counted),
-                  max(errs[key], dv_errs[key], rf_errs[key]), times[key], times[key + "_plain"], bounds[key],
-                  times[key + "_library"]),
+                  max(bilinear_parity[path][0][key] for path in BILINEAR_SHAPES), top["ms"], top["plain_ms"], top,
+                  top["library_ms"]),
+            kernel=kernel,
             launches_by_path={path: sum(counts[k] for k in counted) for path, counts in by_path.items()},
-            at_deepvoxels_shapes={"max_abs_err": dv_errs[key], "ms": dv_times[key],
-                                  "plain_ms": dv_times[key + "_plain"], "library_ms": dv_times[key + "_library"],
-                                  "bound_ms": dv_bounds[key]["bound_ms"], "bound_by": dv_bounds[key]["bound_by"]},
-            # the feature 3D-consistency loss's gathers: C = 257, on the scalar-channel
-            # K1 and (the backward) the thread-per-point K2
-            at_rotate_feature_shapes={"max_abs_err": rf_errs[key], "ms": rf_times[key],
-                                      "plain_ms": rf_times[key + "_plain"], "library_ms": rf_times[key + "_library"],
-                                      "bound_ms": rf_bounds[key]["bound_ms"], "bound_by": rf_bounds[key]["bound_by"],
-                                      "shape": BILINEAR_SHAPES["rotate_feature"], "at_warp_points": rf_at_warp},
+            launches_by_kernel={k: sum(counts[k] for counts in by_path.values()) for k in counted},
+            **{k: v for k, v in top.items() if k in ("generic_ms", "in_turns_ms",
+                                                     "modelled_corner_additions_per_reduction")},
+            at_warp_points=figures("stylegan", key, "warp"),
+            at_deepvoxels_shapes=dict(figures("deepvoxels", key, "random"),
+                                      at_warp_points=figures("deepvoxels", key, "warp")),
+            # the feature 3D-consistency loss's gathers: C = 257, a warp a point
+            at_rotate_feature_shapes=dict(figures("rotate_feature", key, "random"), kernel=wide,
+                                          shape=BILINEAR_SHAPES["rotate_feature"],
+                                          at_warp_points=figures("rotate_feature", key, "warp"),
+                                          at_feature_points=figures("rotate_feature", key, "feature")),
         )
-        if key == "bwd":
-            # the vectorised kernel ran at C = 4, the thread-per-point one at any
-            # other C; at C = 4 the thread-per-point kernel was also timed in turns
-            e.update(kernel="bilinear_bwd_vec4_kernel (C = 4), bilinear_bwd_kernel (other C)",
-                     launches_by_kernel={k: sum(counts[k] for counts in by_path.values()) for k in counted},
-                     generic_ms=times["bwd_generic"], in_turns_ms=times["bwd_in_turns"],
-                     modelled_corner_additions_per_reduction=times["modelled_corner_additions_per_reduction"],
-                     at_warp_points=at_warp)
-            e["at_deepvoxels_shapes"].update(generic_ms=dv_times["bwd_generic"], at_warp_points=dv_at_warp)
-            e["at_rotate_feature_shapes"]["kernel"] = "bilinear_bwd_kernel"
         kernels.append(e)
     for key, line in (("fwd", 110), ("bwd", 141), ("fwd_win", 210), ("bwd_win", 240)):
         # the vectorised kernels ran: the windowed pair on the yml's default, the full pair on pallas_f32

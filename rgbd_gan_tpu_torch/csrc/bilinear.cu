@@ -18,15 +18,22 @@
 //
 // Bound: memory traffic. At the training shapes (B=32, H=W=128, C=4,
 // N=16384) one call touches about 8 MB of image and 0.5 M points, with
-// 4 random 16-byte corner reads per point. K1: one thread per point; for
-// C=4 each corner is one aligned float4 load and the output one float4
-// store. K2 adds into a zeroed d img with f32 reductions, so its summation
-// order changes from run to run; du and dv are closed-form per point and
-// deterministic. For C=4 (img, g and d img 16-byte aligned) K2 runs
-// bilinear_bwd_vec4_kernel: float4 cotangent and corner reads and one
-// 4-float vector reduction per corner, where a corner column that the next
-// point shares is handed to its lane in registers first; for any other C
-// bilinear_bwd_kernel, a thread per point with scalar atomics.
+// 4 random 16-byte corner reads per point. K2 adds into a zeroed d img with
+// f32 reductions, so its summation order changes from run to run; du and
+// dv are closed-form per point.
+//
+// Kernels by channel count (ops/bilinear.py: fwd_route, bwd_route):
+//   C == 4: K1 bilinear_fwd_kernel<EXACT, true>, a thread per point, each
+//     corner one aligned float4 load and the output one float4 store; K2
+//     bilinear_bwd_vec4_kernel (img, g and d img 16-byte aligned): float4
+//     cotangent and corner reads and one 4-float vector reduction per
+//     corner, where a corner column that the next point shares is handed
+//     to its lane in registers first.
+//   any other C: bilinear_fwd_lanes_kernel and bilinear_bwd_lanes_kernel, a
+//     group of lanes per point over the channels (the feature
+//     3D-consistency loss gathers at C = 257).
+//   The thread-per-point kernels of any C, bilinear_fwd_kernel<EXACT, false>
+//   and bilinear_bwd_kernel, stay as the measurements' old route only.
 //
 // Plain C interface (bound with ctypes). Each entry point launches on the
 // given stream and returns cudaGetLastError().
@@ -275,8 +282,185 @@ __global__ void bilinear_bwd_vec4_kernel(const float* __restrict__ img, const fl
   }
 }
 
+// ---------------------------------------------------------------- K1, K2 for C != 4
+
+// A group of L lanes per point, L = min(32, the power of two >= C): a warp
+// at C >= 17, so that no C leaves most of a group idle (C = 257: a warp; C =
+// 3: 4 lanes). Lane j takes channels j, j + L, j + 2L, ...: at C = 257 a
+// thread walking its point's channels would put the 32 lanes of a warp 1028
+// bytes apart on every access; here each corner row is read, and the output
+// row written, by consecutive lanes on consecutive addresses. A row starts
+// at any 4-byte phase (C = 257 is odd), so the accesses are scalar. Every
+// lane computes the corner offsets and weights of its point once, from one
+// broadcast read of u and v, and holds U of its channels in registers at
+// once: all of a chunk's corner loads are issued before its first multiply.
+// A warp group holds kWideRegs = 9 slots, one chunk at C = 257 (the feature
+// loss's ch + 1 in every shipped config), and loops over chunks of 288
+// channels above that; a slot past C is predicated off. 16 slots held K2
+// at 92 registers, two blocks of 256 threads an SM, where 9 leave room for
+// four. Bound: memory traffic, as above; K2 also adds into d img through L2.
+constexpr int kWideRegs = 9;
+
+// One scalar reduction into global memory, no value returned.
+__device__ __forceinline__ void red_add(float* dst, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;" ::"l"(dst), "f"(v));
+}
+
+template <bool EXACT, int L, int U>
+__global__ void __launch_bounds__(kThreads)
+    bilinear_fwd_lanes_kernel(const float* __restrict__ img, const float* __restrict__ u,
+                              const float* __restrict__ v, float* __restrict__ out, int N, int H, int W,
+                              int C, int64_t total) {
+  constexpr int kRows = EXACT ? 2 : 4;  // corners read: u1 == u0 in exact mode
+  const int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / L;  // the group's point
+  const int lane = threadIdx.x % L;
+  if (i >= total) return;  // a whole group at once; no lane waits on another
+  const int64_t b = i / N;
+  const Corners k = corners(u[i], v[i], H, W, C, b * H * W * C, EXACT);
+  float* o = out + i * C;
+  if (!k.in_bounds) {
+    for (int c = lane; c < C; c += L) o[c] = 0.f;
+    return;
+  }
+  // the rows in the order of the weights below; in exact mode both u
+  // weights land on the u0 row, as in bilinear_fwd_kernel
+  const int64_t row[4] = {k.o00, k.o01, k.o10, k.o11};
+  float w[4];
+  if constexpr (EXACT) {
+    const float wu = k.wu0 + k.wu1;
+    w[0] = wu * k.wv0;
+    w[1] = wu * k.wv1;
+  } else {
+    w[0] = k.wu0 * k.wv0;
+    w[1] = k.wu0 * k.wv1;
+    w[2] = k.wu1 * k.wv0;
+    w[3] = k.wu1 * k.wv1;
+  }
+  for (int c0 = lane; c0 < C; c0 += L * U) {
+    float p[kRows][U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int c = c0 + j * L;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) p[r][j] = c < C ? img[row[r] + c] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int c = c0 + j * L;
+      if (c >= C) break;
+      // the sums of bilinear_fwd_kernel<EXACT, false>, in its order
+      if constexpr (EXACT)
+        o[c] = w[0] * p[0][j] + w[1] * p[1][j];
+      else
+        o[c] = w[0] * p[0][j] + w[2] * p[2][j] + w[1] * p[1][j] + w[3] * p[3][j];
+    }
+  }
+}
+
+// d img must be zeroed by the caller. Each lane adds its channels' shares
+// to each corner with red.global.add.f32: the group's reductions into one
+// corner row fall on consecutive addresses. du and dv are summed per lane,
+// then across the group with __shfl_xor_sync; lane 0 writes them. An
+// out-of-bounds point reads no image or cotangent memory and adds nothing.
+template <bool EXACT, int L, int U>
+__global__ void __launch_bounds__(kThreads)
+    bilinear_bwd_lanes_kernel(const float* __restrict__ img, const float* __restrict__ u,
+                              const float* __restrict__ v, const float* __restrict__ g,
+                              float* __restrict__ dimg, float* __restrict__ du, float* __restrict__ dv, int N,
+                              int H, int W, int C, int64_t total) {
+  constexpr int kRows = EXACT ? 2 : 4;
+  const int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / L;
+  const int lane = threadIdx.x % L;
+  const bool live = i < total;  // every lane takes part in the shuffles: none returns early
+  const Corners k = corners(live ? u[i] : -1.f, live ? v[i] : -1.f, H, W, C,
+                            (live ? i / N : 0) * H * W * C, EXACT);
+  float acc_u = 0.f, acc_v = 0.f;
+  if (k.in_bounds) {
+    const float* gi = g + i * C;
+    const int64_t row[4] = {k.o00, k.o01, k.o10, k.o11};
+    // additions to the corners: wu * wv * g, rounded as bilinear_bwd_kernel rounds them
+    const float wu0 = EXACT ? k.wu0 + k.wu1 : k.wu0;
+    const float w[4] = {wu0 * k.wv0, wu0 * k.wv1, k.wu1 * k.wv0, k.wu1 * k.wv1};
+    for (int c0 = lane; c0 < C; c0 += L * U) {
+      float gc[U], p[kRows][U];
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int c = c0 + j * L;
+        gc[j] = c < C ? gi[c] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) p[r][j] = c < C ? img[row[r] + c] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int c = c0 + j * L;
+        if (c >= C) break;
+        const float gj = gc[j];
+        if constexpr (EXACT) {
+          // d u is identically 0: the two u corners coincide
+          acc_v += gj * (wu0 * p[1][j] - wu0 * p[0][j]);
+        } else {
+          const float p00 = p[0][j], p01 = p[1][j], p10 = p[2][j], p11 = p[3][j];
+          acc_u += gj * (k.wv0 * (p10 - p00) + k.wv1 * (p11 - p01));
+          acc_v += gj * ((k.wu0 * p01 + k.wu1 * p11) - (k.wu0 * p00 + k.wu1 * p10));
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) red_add(dimg + row[r] + c, w[r] * gj);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = L / 2; s > 0; s >>= 1) {
+    acc_u += __shfl_xor_sync(kAll, acc_u, s, L);
+    acc_v += __shfl_xor_sync(kAll, acc_v, s, L);
+  }
+  if (live && lane == 0) {
+    du[i] = acc_u;
+    dv[i] = acc_v;
+  }
+}
+
 inline unsigned int blocks_for(int64_t total) {
   return (unsigned int)((total + kThreads - 1) / kThreads);
+}
+
+struct LanesArgs {
+  bool bwd;  // K2, else K1
+  const float *img, *u, *v, *g;
+  float *out, *du, *dv;  // out: K1's output, or K2's d img
+  int N, H, W, C;
+  int64_t total;
+};
+
+// K1 or K2 with L lanes a point and U channels a lane in registers
+template <int L, int U>
+void launch_lanes(const LanesArgs& a, bool exact, cudaStream_t s) {
+  const unsigned int grid = blocks_for(a.total * L);
+  if (!a.bwd) {
+    if (exact)
+      bilinear_fwd_lanes_kernel<true, L, U><<<grid, kThreads, 0, s>>>(a.img, a.u, a.v, a.out, a.N, a.H, a.W, a.C,
+                                                                      a.total);
+    else
+      bilinear_fwd_lanes_kernel<false, L, U><<<grid, kThreads, 0, s>>>(a.img, a.u, a.v, a.out, a.N, a.H, a.W, a.C,
+                                                                       a.total);
+  } else {
+    if (exact)
+      bilinear_bwd_lanes_kernel<true, L, U><<<grid, kThreads, 0, s>>>(a.img, a.u, a.v, a.g, a.out, a.du, a.dv, a.N,
+                                                                      a.H, a.W, a.C, a.total);
+    else
+      bilinear_bwd_lanes_kernel<false, L, U><<<grid, kThreads, 0, s>>>(a.img, a.u, a.v, a.g, a.out, a.du, a.dv,
+                                                                       a.N, a.H, a.W, a.C, a.total);
+  }
+}
+
+// L = min(32, the power of two >= C), one slot a lane below a warp
+void dispatch_lanes(const LanesArgs& a, bool exact, cudaStream_t s) {
+  const int C = a.C;
+  if (C <= 1) return launch_lanes<1, 1>(a, exact, s);
+  if (C <= 2) return launch_lanes<2, 1>(a, exact, s);
+  if (C <= 4) return launch_lanes<4, 1>(a, exact, s);
+  if (C <= 8) return launch_lanes<8, 1>(a, exact, s);
+  if (C <= 16) return launch_lanes<16, 1>(a, exact, s);
+  return launch_lanes<32, kWideRegs>(a, exact, s);
 }
 
 }  // namespace
@@ -340,3 +524,24 @@ extern "C" int bilinear_gather_bwd_vec4(const float* img, const float* u,
     bilinear_bwd_vec4_kernel<false><<<grid, kThreads, 0, s>>>(img, u, v, g, dimg, du, dv, N, H, W, (int)total);
   return (int)cudaGetLastError();
 }
+
+// K1 with a group of lanes per point (any C; the route of every C != 4).
+extern "C" int bilinear_gather_fwd_lanes(const float* img, const float* u, const float* v, float* out, int B,
+                                         int H, int W, int C, int N, int exact, void* stream) {
+  const int64_t total = (int64_t)B * N;
+  if (total == 0 || C == 0) return (int)cudaGetLastError();
+  dispatch_lanes({false, img, u, v, nullptr, out, nullptr, nullptr, N, H, W, C, total}, exact, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// K2 with a group of lanes per point (any C; the route of every C != 4);
+// dimg must be zeroed by the caller.
+extern "C" int bilinear_gather_bwd_lanes(const float* img, const float* u, const float* v, const float* g,
+                                         float* dimg, float* du, float* dv, int B, int H, int W, int C, int N,
+                                         int exact, void* stream) {
+  const int64_t total = (int64_t)B * N;
+  if (total == 0) return (int)cudaGetLastError();
+  dispatch_lanes({true, img, u, v, g, dimg, du, dv, N, H, W, C, total}, exact, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+

@@ -2,10 +2,10 @@
 
 Port of :mod:`rgbd_gan_tpu.ops.bilinear_pallas`. On a CUDA tensor the
 gather runs the hand-written kernels in ``csrc/bilinear.cu`` (K1 forward,
-K2 backward, the latter on one of two kernels by :func:`bwd_route`); on a
-CPU tensor it runs :func:`bilinear_gather_reference` and
-:func:`bilinear_gather_reference_vjp`, the plain PyTorch versions of the
-same function. A CUDA tensor never falls back to the plain version.
+K2 backward, each on the kernel that :func:`fwd_route` or :func:`bwd_route`
+picks by the channel count); on a CPU tensor it runs
+:func:`bilinear_gather_reference` and :func:`bilinear_gather_reference_vjp`,
+the plain PyTorch versions of the same function. A CUDA tensor never falls back to the plain version.
 
 Semantics (those of ``bilinear_gather_pallas``): ``img`` (B, H, W, C),
 row coordinates ``u`` and column coordinates ``v`` (B, N) -> (B, N, C).
@@ -29,9 +29,12 @@ from torch.autograd.function import once_differentiable
 from ._build import load_library, raise_on
 
 # Launches of each kernel since the last reset; the plain CPU path does not
-# count. ``bwd`` counts the thread-per-point backward, ``bwd_vec4`` the
-# vectorised one.
-launches = {"fwd": 0, "bwd": 0, "bwd_vec4": 0}
+# count. ``fwd`` counts the thread-per-point forward (C == 4, or the old
+# route forced by name), ``fwd_lanes`` the forward with a group of lanes a
+# point; ``bwd`` the thread-per-point backward (forced by name only),
+# ``bwd_vec4`` the vectorised one (C == 4), ``bwd_lanes`` the one with a
+# group of lanes a point.
+launches = {"fwd": 0, "fwd_lanes": 0, "bwd": 0, "bwd_vec4": 0, "bwd_lanes": 0}
 
 _lib = None
 
@@ -134,16 +137,40 @@ def bilinear_gather_reference_vjp(
 # ---------------------------------------------------------------------------
 
 
+def fwd_route(c: int) -> str:
+    """The forward kernel that takes a call on the card: ``"vec4"``
+    (``bilinear_fwd_kernel<EXACT, true>``: a thread per point, one float4
+    load per corner) when C == 4, else ``"lanes"``
+    (``bilinear_fwd_lanes_kernel``: a group of lanes per point over the
+    channels, each corner row read and the output row written coalesced).
+    ``"generic"``, the thread-per-point kernel of any C, is taken only when
+    forced by name, for measurements."""
+    return "vec4" if c == 4 else "lanes"
+
+
 def bwd_route(c: int) -> str:
     """The backward kernel that takes a call on the card: ``"vec4"``
     (``bilinear_bwd_vec4_kernel``: a thread per point, float4 cotangent and
     corner reads, a corner column shared with the next point handed to its
     lane in registers, one 4-float reduction per corner) when C == 4, else
-    ``"generic"`` (``bilinear_bwd_kernel``: a thread per point, scalar
-    atomics). For C == 4 the wrapper takes only a 16-byte-aligned image and
-    cotangent (the autograd backward copies a cotangent that is not); d img
-    is a fresh allocation, aligned by construction."""
-    return "vec4" if c == 4 else "generic"
+    ``"lanes"`` (``bilinear_bwd_lanes_kernel``: a group of lanes per point
+    over the channels, coalesced reads and scalar reductions, du and dv
+    summed across the group by shuffles). ``"generic"``
+    (``bilinear_bwd_kernel``: a thread per point, scalar atomics) is taken
+    only when forced by name. For C == 4 the wrapper takes only a
+    16-byte-aligned image and cotangent (the autograd backward copies a
+    cotangent that is not); d img is a fresh allocation, aligned by
+    construction."""
+    return "vec4" if c == 4 else "lanes"
+
+
+def _pick(kind: str, chosen: str, route, c: int) -> str:
+    """``route`` where it can take a call of C channels, else ``chosen``
+    (``route`` None): ``"generic"`` and ``"lanes"`` take any C, ``"vec4"``
+    only C == 4. Raises, before any device is touched, on any other."""
+    if route not in (None, "generic", "vec4", "lanes") or (route == "vec4" and chosen != "vec4"):
+        raise ValueError(f"{kind} route {route!r} does not take C={c}")
+    return route or chosen
 
 
 def _library() -> ctypes.CDLL:
@@ -158,6 +185,10 @@ def _library() -> ctypes.CDLL:
         lib.bilinear_gather_bwd.restype = i
         lib.bilinear_gather_bwd_vec4.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bilinear_gather_bwd_vec4.restype = i
+        lib.bilinear_gather_fwd_lanes.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.bilinear_gather_fwd_lanes.restype = i
+        lib.bilinear_gather_bwd_lanes.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.bilinear_gather_bwd_lanes.restype = i
         _lib = lib
     return _lib
 
@@ -194,8 +225,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _fwd(img, u, v, exact: bool) -> torch.Tensor:
+def _fwd(img, u, v, exact: bool, route=None) -> torch.Tensor:
+    """K1 on CUDA tensors, the plain version on CPU tensors. ``route``
+    overrides :func:`fwd_route`'s choice, for measurements only (see
+    :func:`_pick`)."""
     _check(img, u, v)
+    route = _pick("forward", fwd_route(img.shape[3]), route, img.shape[3])
     if img.device.type == "cpu":
         return bilinear_gather_reference(img, u, v, exact)
     if img.device.type != "cuda":
@@ -205,27 +240,25 @@ def _fwd(img, u, v, exact: bool) -> torch.Tensor:
     n = u.shape[1]
     out = torch.empty(b, n, c, dtype=torch.float32, device=img.device)
     lib = _library()
+    # the thread-per-point kernel (C == 4: its float4 instance) or the lanes kernel
+    entry = lib.bilinear_gather_fwd_lanes if route == "lanes" else lib.bilinear_gather_fwd
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.bilinear_gather_fwd(
+        err = entry(
             img.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, w, c, n, int(exact), stream,
         )
-    raise_on(err, "bilinear_gather_fwd")
-    launches["fwd"] += 1
+    raise_on(err, f"bilinear_gather_fwd ({route})")
+    launches["fwd_lanes" if route == "lanes" else "fwd"] += 1
     return out
 
 
 def _bwd(img, u, v, g, exact: bool, route=None):
     """K2 on CUDA tensors, the plain version on CPU tensors. ``route``
-    overrides :func:`bwd_route`'s choice, for measurements only:
-    ``"generic"`` also takes the calls that ``"vec4"`` takes; a route that
-    cannot take the call raises before any device is touched."""
+    overrides :func:`bwd_route`'s choice, for measurements only (see
+    :func:`_pick`)."""
     _check(img, u, v, g)
-    chosen = bwd_route(img.shape[3])
-    if route not in (None, "generic", "vec4") or (route == "vec4" and chosen != "vec4"):
-        raise ValueError(f"backward route {route!r} does not take C={img.shape[3]}")
-    route = route or chosen
+    route = _pick("backward", bwd_route(img.shape[3]), route, img.shape[3])
     if img.device.type == "cpu":
         return bilinear_gather_reference_vjp(img, u, v, g, exact)
     if img.device.type != "cuda":
@@ -237,7 +270,8 @@ def _bwd(img, u, v, g, exact: bool, route=None):
     du = torch.empty_like(u)
     dv = torch.empty_like(v)
     lib = _library()
-    entry = lib.bilinear_gather_bwd if route == "generic" else lib.bilinear_gather_bwd_vec4
+    entry = {"generic": lib.bilinear_gather_bwd, "vec4": lib.bilinear_gather_bwd_vec4,
+             "lanes": lib.bilinear_gather_bwd_lanes}[route]
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = entry(
@@ -246,7 +280,7 @@ def _bwd(img, u, v, g, exact: bool, route=None):
             b, h, w, c, n, int(exact), stream,
         )
     raise_on(err, f"bilinear_gather_bwd ({route})")
-    launches["bwd" if route == "generic" else "bwd_vec4"] += 1
+    launches[{"generic": "bwd", "vec4": "bwd_vec4", "lanes": "bwd_lanes"}[route]] += 1
     return dimg, du, dv
 
 

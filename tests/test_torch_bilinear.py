@@ -19,18 +19,21 @@ from rgbd_gan_tpu_torch.geometry.warp import bilinear_sample
 from rgbd_gan_tpu_torch.ops import bilinear
 
 B, H, W, C, N = 2, 16, 16, 4, 300  # N is not a tile multiple
+# a channel count above a warp's 32 lanes and no multiple of it: on the card
+# such a C takes the kernels with a group of lanes per point
+WIDE = dict(b=2, h=8, w=8, c=33, n=64)
 ATOL = 1e-5
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, b=B, h=H, w=W, c=C, n=N):
     rng = np.random.RandomState(seed)
-    img = rng.rand(B, H, W, C).astype("f")
+    img = rng.rand(b, h, w, c).astype("f")
     # in-bounds, out-of-bounds and integer points
-    u = ((rng.rand(B, N) * 1.4 - 0.2) * (H - 1)).astype("f")
-    v = ((rng.rand(B, N) * 1.4 - 0.2) * (W - 1)).astype("f")
+    u = ((rng.rand(b, n) * 1.4 - 0.2) * (h - 1)).astype("f")
+    v = ((rng.rand(b, n) * 1.4 - 0.2) * (w - 1)).astype("f")
     u[:, ::7] = np.floor(u[:, ::7])
     v[:, ::5] = np.floor(v[:, ::5])
-    g = rng.randn(B, N, C).astype("f")
+    g = rng.randn(b, n, c).astype("f")
     return img, u, v, g
 
 
@@ -49,10 +52,12 @@ def _torch_vjp(fn, img, u, v, g):
     return out.detach().numpy(), [t.grad.numpy() for t in (ti, tu, tv)]
 
 
-@pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("route", ["function", "reference"])
-def test_forward_and_grads_match_pallas(exact, route):
-    img, u, v, g = _inputs()
+@pytest.mark.parametrize("route,exact,shape", [
+    pytest.param(route, exact, shape, id=f"{route}-{exact}" + ("-wide" if shape else ""))
+    for shape in ({}, WIDE) for route in ("function", "reference") for exact in (True, False)
+])
+def test_forward_and_grads_match_pallas(exact, route, shape):
+    img, u, v, g = _inputs(**shape)
     fn = bilinear.bilinear_gather if route == "function" else bilinear.bilinear_gather_reference
     out_t, grads_t = _torch_vjp(lambda i, uu, vv: fn(i, uu, vv, exact), img, u, v, g)
     out_j, grads_j = _jax_vjp(img, u, v, g, exact)

@@ -1,7 +1,8 @@
-"""Which kernel takes K2 (the bilinear gather's backward) on the card, decided
-in Python from the channel count alone: ``bilinear.bwd_route``, ``_bwd``'s
-refusal of a forced route that cannot take the call, before it touches a
-device, and the copy that gives the vectorised kernel an aligned cotangent.
+"""Which kernel takes K1 and K2 (the bilinear gather's forward and backward)
+on the card, decided in Python from the channel count alone:
+``bilinear.fwd_route`` and ``bwd_route``, ``_fwd``'s and ``_bwd``'s refusal of
+a forced route that cannot take the call, before they touch a device, and
+the copy that gives the vectorised backward an aligned cotangent.
 Also the yardsticks of ``tools/bilinear_yardstick.py`` that ``chip_smoke.py``
 prints and times beside K1 and K2: the modelled count of the vectorised
 kernel's merged reductions, and the library calls (``F.grid_sample`` and its
@@ -39,16 +40,28 @@ def _inputs(b=2, h=16, w=24, c=4, n=300, seed=0):
 
 @pytest.mark.parametrize("c,want", [
     (4, "vec4"),  # every path's C
-    (1, "generic"),  # float4 corners need C == 4
-    (2, "generic"),
-    (3, "generic"),
-    (5, "generic"),
-    (8, "generic"),
-    (12, "generic"),
-    (16, "generic"),
+    (1, "lanes"),  # float4 corners need C == 4
+    (2, "lanes"),
+    (3, "lanes"),
+    (5, "lanes"),
+    (8, "lanes"),
+    (12, "lanes"),
+    (16, "lanes"),
 ])
 def test_backward_route(c, want):
     assert bilinear.bwd_route(c) == want
+
+
+@pytest.mark.parametrize("c,want", [
+    (4, "vec4"),  # every path's C
+    (1, "lanes"),
+    (3, "lanes"),
+    (5, "lanes"),
+    (33, "lanes"),  # above a warp, no multiple of it
+    (257, "lanes"),  # the feature 3D-consistency loss's gather (ch 256 + depth)
+])
+def test_forward_route(c, want):
+    assert bilinear.fwd_route(c) == want
 
 
 @pytest.mark.parametrize("c,route", [
@@ -59,11 +72,25 @@ def test_backward_route(c, want):
 ])
 def test_backward_refuses_a_forced_route_that_does_not_take_the_call(c, route):
     """``_bwd(..., route=)`` is for measurements; it never sends a call to a
-    kernel that :func:`bilinear.bwd_route` would not pick for it, and says so
-    before any device is touched (these tensors lie on the CPU)."""
+    kernel that cannot take it, and says so before any device is touched
+    (these tensors lie on the CPU)."""
     img, u, v, g = _inputs(c=c)
     with pytest.raises(ValueError, match="does not take"):
         bilinear._bwd(img, u, v, g, True, route=route)
+
+
+@pytest.mark.parametrize("c,route", [
+    (3, "vec4"),
+    (257, "vec4"),
+    (8, "vec4"),
+    (4, "scalar"),  # no such kernel
+])
+def test_forward_refuses_a_forced_route_that_does_not_take_the_call(c, route):
+    img, u, v, _ = _inputs(c=c)
+    bilinear.reset_launches()
+    with pytest.raises(ValueError, match="does not take"):
+        bilinear._fwd(img, u, v, True, route=route)
+    assert not any(bilinear.launches.values())
 
 
 def _shifted(t, offset):
@@ -103,7 +130,7 @@ def test_autograd_backward_takes_an_unaligned_cotangent(exact):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("route", [None, "generic", "vec4"])
+@pytest.mark.parametrize("route", [None, "generic", "vec4", "lanes"])
 def test_backward_on_the_cpu_runs_the_plain_version_and_launches_nothing(route):
     img, u, v, g = _inputs(seed=1)
     bilinear.reset_launches()
@@ -112,6 +139,17 @@ def test_backward_on_the_cpu_runs_the_plain_version_and_launches_nothing(route):
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
     assert not any(bilinear.launches.values())
+
+
+@pytest.mark.parametrize("c,route", [(4, None), (4, "generic"), (4, "vec4"), (4, "lanes"), (33, None),
+                                     (33, "generic")])
+def test_forward_on_the_cpu_runs_the_plain_version_and_launches_nothing(c, route):
+    img, u, v, _ = _inputs(c=c, seed=1)
+    bilinear.reset_launches()
+    got = bilinear._fwd(img, u, v, True, route=route)
+    torch.testing.assert_close(got, bilinear.bilinear_gather_reference(img, u, v, True), rtol=0, atol=0)
+    assert not any(bilinear.launches.values())
+    assert set(bilinear.launches) == {"fwd", "fwd_lanes", "bwd", "bwd_vec4", "bwd_lanes"}
 
 
 @pytest.mark.parametrize("exact", [True, False])

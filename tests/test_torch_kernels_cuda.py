@@ -7,9 +7,13 @@ This file imports no JAX, so it also runs on a machine without it:
 ``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
 
 K6 takes one of two kernels by ``conv.route``, the lift's forward and
-backward one of two each by ``trilinear.fwd_route`` and ``bwd_route``, K2 one
-of two by ``bilinear.bwd_route``: each case checks which launch count moved. Tolerance: atol 1e-5 on the forward and on du/dv; rtol 1e-5 / atol 1e-4 on
-d img, whose f32 atomics add in an order that changes from run to run. The
+backward one of two each by ``trilinear.fwd_route`` and ``bwd_route``, K1
+and K2 one of two each by ``bilinear.fwd_route`` and ``bwd_route`` (C == 4:
+the vectorised kernels; any other C: a group of lanes per point), and the
+old thread-per-point kernels by name: each case checks which launch count
+moved. Tolerance: atol 1e-5 on the forward and on du/dv (du/dv, sums over
+the C channels, at atol 1e-5 x sqrt(C / 4) above C = 4); rtol 1e-5 / atol
+1e-4 on d img, whose f32 atomics add in an order that changes from run to run. The
 lift: rtol/atol 1e-5 on the float32 forward (fused multiply-adds against
 separate ones), one bf16 ulp (rtol 2^-7) on the bf16 forward, and rtol 1e-5 /
 atol 1e-4 on dV (atomics again). K6: largest absolute error 1e-4 x max|y|
@@ -74,15 +78,16 @@ def test_kernels_match_plain_version(cuda, exact, shape):
 @pytest.mark.parametrize("exact", [True, False])
 def test_kernels_match_plain_version_at_the_feature_gather_shape(cuda, exact):
     """The feature 3D-consistency loss's gather (D's 32x32 tap of 256
-    features plus a depth channel): K1's scalar-channel instance and the
-    thread-per-point K2. du and dv sum 257 channels: atol 1e-5 * sqrt(C / 4)."""
+    features plus a depth channel): K1 and K2 with a warp per point. du and
+    dv sum 257 channels: atol 1e-5 * sqrt(C / 4)."""
     img, u, v, g = _inputs(32, 32, 32, 257, 1024, seed=5, device=cuda)
-    assert bilinear.bwd_route(257) == "generic"
+    assert bilinear.fwd_route(257) == "lanes" and bilinear.bwd_route(257) == "lanes"
     before = dict(bilinear.launches)
     out = bilinear._fwd(img, u, v, exact)
     got = bilinear._bwd(img, u, v, g, exact)
     torch.cuda.synchronize()
-    assert bilinear.launches == {**before, "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert bilinear.launches == {**before, "fwd_lanes": before["fwd_lanes"] + 1,
+                                 "bwd_lanes": before["bwd_lanes"] + 1}
     torch.testing.assert_close(out, bilinear.bilinear_gather_reference(img, u, v, exact), rtol=0, atol=ATOL)
     want = bilinear.bilinear_gather_reference_vjp(img, u, v, g, exact)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
@@ -156,9 +161,10 @@ def _assert_bwd_matches(img, u, v, g, exact, route_key, route=None):
     torch.cuda.synchronize()
     assert bilinear.launches == {**before, route_key: before[route_key] + 1}
     want = bilinear.bilinear_gather_reference_vjp(img, u, v, g, exact)
+    duv_atol = ATOL * max(1.0, np.sqrt(img.shape[3] / 4))  # sums over C channels
     torch.testing.assert_close(dimg, want[0], rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(du, want[1], rtol=0, atol=ATOL)
-    torch.testing.assert_close(dv, want[2], rtol=0, atol=ATOL)
+    torch.testing.assert_close(du, want[1], rtol=0, atol=duv_atol)
+    torch.testing.assert_close(dv, want[2], rtol=0, atol=duv_atol)
     if exact:
         assert torch.all(du == 0)
     return dimg, du, dv
@@ -208,8 +214,10 @@ def test_backward_vec4_nan_and_inf_points_read_nothing(cuda):
 @pytest.mark.parametrize("exact", [True, False])
 def test_backward_generic_route_for_three_channels_or_by_name(cuda, exact):
     img, u, v, g = _inputs(2, 16, 24, 3, 257, seed=10, device=cuda)
-    assert bilinear.bwd_route(3) == "generic"
-    _assert_bwd_matches(img, u, v, g, exact, "bwd")
+    # three channels take the lanes kernel, the thread-per-point one only by name
+    assert bilinear.bwd_route(3) == "lanes"
+    _assert_bwd_matches(img, u, v, g, exact, "bwd_lanes")
+    _assert_bwd_matches(img, u, v, g, exact, "bwd", route="generic")
     with pytest.raises(ValueError, match="does not take"):
         bilinear._bwd(img, u, v, g, exact, route="vec4")
     # the old kernel by name, on a call the vectorised one takes
@@ -236,6 +244,87 @@ def test_backward_copies_an_unaligned_cotangent_onto_the_vectorised_kernel(cuda,
     torch.testing.assert_close(leaves[0].grad, want[0], rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(leaves[1].grad, want[1], rtol=0, atol=ATOL)
     torch.testing.assert_close(leaves[2].grad, want[2], rtol=0, atol=ATOL)
+
+
+def _assert_fwd_matches(img, u, v, exact, route_key, route=None):
+    before = dict(bilinear.launches)
+    out = bilinear._fwd(img, u, v, exact, route=route)
+    torch.cuda.synchronize()
+    assert bilinear.launches == {**before, route_key: before[route_key] + 1}
+    torch.testing.assert_close(out, bilinear.bilinear_gather_reference(img, u, v, exact), rtol=0, atol=ATOL)
+    return out
+
+
+@pytest.mark.parametrize("points", ["random", "warp"])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 12, 20, 33, 65, 100, 257, 600])
+def test_lanes_kernels_match_plain_version(cuda, c, exact, points):
+    """K1 and K2 with a group of lanes per point, every instance: fewer
+    lanes than a warp (C = 1, 2, 3, 5, 12), a warp with most of its nine
+    register slots a lane predicated off (20, 33, 65, 100), a warp with a
+    ragged last channel (257: no multiple of 32, the slots just fill), and
+    more channels than a warp holds in registers at once (600: chunks of
+    288, the last ragged)."""
+    img, u, v, g = (_inputs if points == "random" else _warp_inputs)(2, 16, 24, c, 300, seed=12, device=cuda)
+    assert bilinear.fwd_route(c) == "lanes" and bilinear.bwd_route(c) == "lanes"
+    _assert_fwd_matches(img, u, v, exact, "fwd_lanes")
+    _assert_bwd_matches(img, u, v, g, exact, "bwd_lanes")
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("c", [3, 33, 257])
+def test_lanes_kernels_nan_inf_and_out_of_bounds_points(cuda, c, exact):
+    """Masked points (NaN, inf, far off the grid) give 0 and receive no
+    gradient, and read no cotangent: theirs is NaN. A batch whose every
+    point lies out of bounds gives zeros throughout."""
+    img, u, v, g = _inputs(3, 16, 16, c, 300, seed=13, device=cuda)
+    u[0, :8] = float("nan")
+    v[0, 8:16] = float("inf")
+    u[0, 16:24] = -1e30
+    v[1] = 15.0  # the whole of image 1: v < W - 1 fails
+    masked = ~((u >= 0) & (u < 15) & (v >= 0) & (v < 15))
+    g[masked] = float("nan")
+    out = _assert_fwd_matches(img, u, v, exact, "fwd_lanes")
+    dimg, du, dv = _assert_bwd_matches(img, u, v, g.nan_to_num(0.0), exact, "bwd_lanes")
+    got = bilinear._bwd(img, u, v, g, exact)
+    torch.cuda.synchronize()
+    assert torch.all(out[masked] == 0) and torch.all(out[1] == 0)
+    assert torch.isfinite(got[0]).all() and torch.all(got[0][1] == 0)
+    for a in got[1:]:
+        assert torch.all(a[masked] == 0)
+    torch.testing.assert_close(got[0], dimg, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("c", [3, 257])
+def test_forced_generic_route_matches_the_lanes_route(cuda, c, exact):
+    """The thread-per-point kernels, forced by name for measurements, and
+    the lanes kernels compute the same gather."""
+    img, u, v, g = _inputs(4, 32, 32, c, 1024, seed=14, device=cuda)
+    lanes = _assert_fwd_matches(img, u, v, exact, "fwd_lanes")
+    generic = _assert_fwd_matches(img, u, v, exact, "fwd", route="generic")
+    torch.testing.assert_close(lanes, generic, rtol=0, atol=ATOL)
+    d_lanes = _assert_bwd_matches(img, u, v, g, exact, "bwd_lanes")
+    d_generic = _assert_bwd_matches(img, u, v, g, exact, "bwd", route="generic")
+    torch.testing.assert_close(d_lanes[0], d_generic[0], rtol=1e-5, atol=1e-4)
+    for a, b_ in zip(d_lanes[1:], d_generic[1:]):
+        torch.testing.assert_close(a, b_, rtol=0, atol=ATOL * max(1.0, np.sqrt(c / 4)))
+    with pytest.raises(ValueError, match="does not take"):
+        bilinear._fwd(img, u, v, exact, route="vec4")
+
+
+def test_autograd_at_the_feature_gather_width_launches_the_lanes_kernels(cuda):
+    img, u, v, g = _inputs(2, 32, 32, 257, 1024, seed=15, device=cuda)
+    before = dict(bilinear.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (img, u, v)]
+    bilinear.bilinear_gather(*leaves).backward(g)
+    torch.cuda.synchronize()
+    assert bilinear.launches == {**before, "fwd_lanes": before["fwd_lanes"] + 1,
+                                 "bwd_lanes": before["bwd_lanes"] + 1}
+    want = bilinear.bilinear_gather_reference_vjp(img, u, v, g, True)
+    torch.testing.assert_close(leaves[0].grad, want[0], rtol=1e-5, atol=1e-4)
+    for leaf, w in zip(leaves[1:], want[1:]):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=ATOL * np.sqrt(257 / 4))
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):

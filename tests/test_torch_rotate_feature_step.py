@@ -147,7 +147,7 @@ def one_step():
     state, metrics = trainer._step(spec)(
         trainer.state, torch.from_numpy(x.copy()), ALPHA, **{k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
     )
-    assert bilinear.launches == {"fwd": 0, "bwd": 0, "bwd_vec4": 0}  # the CPU runs the plain versions
+    assert not any(bilinear.launches.values())  # the CPU runs the plain versions
     # each element's gradient (beta1 = 0: Adam's first moment after one step)
     grads = {}
     for prefix, opt in (("mapping.", state.opt_map), ("gen.", state.opt_gen), ("dis.", state.opt_dis)):
