@@ -118,9 +118,27 @@ Phases, each printing one line; any failure exits non-zero:
    `rotate_feature`, `use_occupancy_net_loss` and `rotate_conv_input` for 5,
    each with its launch counts asserted and its ms/step and peak memory
    printed; for the last, the in-bounds share of its feature gathers.
+18. the RGB paths (`rgb: True`) at phase 5's small width, CPU vs card from
+   the same weights and draws: one RGB step of StyleGAN with R1, two of
+   DCGAN with `r1_interval: 2` (the penalty on the first only), one of
+   StyleGAN in bf16 (held to `STEP_BF16_ATOL`), one legacy step with style
+   mixing forced on in both phases, and the forwards of the encoder (its
+   BatchNorm in training mode), BigBiGAN's discriminator and the
+   disentangled discriminator (held to `HEAD_REL`). No kernel of the port
+   may launch: the RGB step has no 3D loss, so it gathers nothing.
+19. the full-width RGB paths through the CLI's run function, each with every
+   K1-K6 launch count 0 and its ms/step, img/s and peak memory printed:
+   `ffhq_stylegan_occlusion.yml` with `rgb: True` (ch 256, batch 32, 128 px,
+   R1 every step) for 5 iterations in f32, then in bf16 with phase 11's
+   dtype hooks, with `cli/evaluate.py --preview` on the f32 snapshot (an
+   8x8 grid of RGB images, no depth rows); `dcgan_shapenet_car.yml` with
+   `rgb: True` for 5; the legacy step at the StyleGAN yml's widths with
+   style mixing at 0.9, 3 steps; and `structured_spheres_dcgan.yml` with
+   `rgb: True` and `nvprof: True`, which must stop at 10 of its 20
+   iterations and write a trace with CUDA kernels under `out/profile/`.
 
 Each path (the benchmark of phase 4, the runs of phases 7-9, 11, 12, 14,
-15 and 17, and the two evaluations) is driven with every kernel's launch
+15, 17 and 19, and the three evaluations) is driven with every kernel's launch
 count set to 0 just before it and read just after; the script's wall time
 is printed before the kernels line. The line before the last is a JSON object describing
 each kernel (its time beside its bound, the plain version's time and, where
@@ -138,6 +156,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -310,6 +329,19 @@ STEP_BF16_ATOL = 3e-3
 SN_U_ATOL = 1e-5
 # phase 14's evaluation: images scored, and the Inception-v3 batch
 EVAL_IMAGES, EVAL_BATCH = 200, 100
+# phase 18: the heads' forwards (the encoder's BatchNorm in training mode
+# over a batch of 4) CPU vs card, the largest difference over the largest
+# magnitude of the CPU output
+HEAD_REL = 1e-4
+# phase 19: the RGB paths (rgb: True) of the shipped ymls; the legacy step at
+# the StyleGAN yml's widths with the legacy updater's style mixing; and
+# structured_spheres_dcgan.yml under nvprof, whose run stops at 10 iterations
+# whatever the yml's count (20 here)
+FFHQ_STYLEGAN_RGB = dict(FFHQ_STYLEGAN_OCCLUSION, rgb=True)
+DCGAN_SHAPENET_CAR_RGB = dict(DCGAN_SHAPENET_CAR, rgb=True)
+STRUCTURED_SPHERES_DCGAN_NVPROF = dict(STRUCTURED_SPHERES_DCGAN, rgb=True, nvprof=True)
+NVPROF_ITERATIONS = 10
+LEGACY_STEPS, LEGACY_MIXING_RATE = 3, 0.9
 
 
 def _reset_launches() -> None:
@@ -1099,7 +1131,7 @@ def _watch_dtypes(sites: dict):
 
 
 def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name: str, watch=None, after=None,
-           bilinear_per_step=BILINEAR_ONE_STEP):
+           bilinear_per_step=BILINEAR_ONE_STEP, iterations=None):
     """Run ``values`` through the CLI's run function on 64 synthetic images
     with every kernel's launch count zeroed just before and read just after;
     returns the launch counts of the bilinear and the trilinear kernels
@@ -1107,7 +1139,8 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
     iteration; K6, wired into no model, must not launch). ``watch`` maps
     sites (see :func:`_watch_dtypes`) to the one dtype each must see.
     ``after(config)`` runs once the run passed, before its directory is
-    removed."""
+    removed. The run must end after ``iterations`` iterations (by default
+    the yml's)."""
     from rgbd_gan_tpu_torch.cli import train as cli
     from rgbd_gan_tpu_torch.core.config import Config
     from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
@@ -1119,7 +1152,7 @@ def _drive(torch, has_yaml: bool, phase: str, values: dict, image_px: int, name:
         os.makedirs(data_dir)
         np.save(os.path.join(data_dir, "images.npy"), synthetic_dataset(64, image_px))
         values = dict(values, dataset_path=data_dir, image_path="unused/*.png", out=os.path.join(work, "out"))
-        iterations, batch = values["iteration"], values["batchsize"]
+        iterations, batch = iterations or values["iteration"], values["batchsize"]
         stamps = []
 
         def on_row(row):
@@ -1579,6 +1612,233 @@ def phase_family_paths(torch, has_yaml: bool):
     return paths, lift
 
 
+def _rgb_small_config(extra: dict, dcgan: bool = False):
+    config = _dcgan_small_config(False) if dcgan else _small_config()
+    config.rgb = True
+    for k, v in extra.items():
+        setattr(config, k, v)
+    return config
+
+
+def _hold(phase: str, losses: dict, atol: float) -> float:
+    """The largest CPU-vs-card distance over the losses of each step; fails
+    past ``atol + STEP_RTOL * |cpu|`` or on a loss that is not finite."""
+    worst = 0.0
+    for cpu, cuda in zip(losses["cpu"], losses["cuda"]):
+        for k, a in cpu.items():
+            b = cuda[k]
+            worst = max(worst, abs(a - b))
+            if not (math.isfinite(b) and abs(a - b) <= atol + STEP_RTOL * abs(a)):
+                raise AssertionError(f"{phase} failed for {k}: cpu {a} vs cuda {b}")
+    return worst
+
+
+def _no_kernel_launched(phase: str) -> dict:
+    counts = _read_launches()
+    if any(v for kind in counts.values() for v in kind.values()):
+        raise AssertionError(f"{phase}: launched the port's kernels {counts}; the RGB paths gather nothing")
+    return counts
+
+
+def phase_rgb_step_parity(torch):
+    """Phase 18: the RGB step (StyleGAN with R1; DCGAN with lazy R1 over two
+    steps; StyleGAN in bf16), the legacy step with mixing forced on, and the
+    forwards of the encoder, BigBiGAN's and the disentangled discriminator,
+    each on the CPU and on the card from the same weights and inputs. No
+    kernel of the port may launch."""
+    import copy
+
+    from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
+    from rgbd_gan_tpu_torch.models.discriminator import DisentangledDiscriminator
+    from rgbd_gan_tpu_torch.models.extras import BigBiGANDiscriminator, Encoder
+    from rgbd_gan_tpu_torch.models.generators import dcgan_make_hidden, stylegan_make_hidden
+    from rgbd_gan_tpu_torch.train.legacy import make_legacy_train_step
+    from rgbd_gan_tpu_torch.train.steps import StepSpec
+    from rgbd_gan_tpu_torch.train.trainer import Trainer
+
+    data = synthetic_dataset(8, 32)
+    g = torch.Generator().manual_seed(9)
+    runs = {
+        "rgb_stylegan_r1": (_rgb_small_config({}), [torch.cat([stylegan_make_hidden(g, 2, 32)] * 2)], STEP_ATOL),
+        "rgb_dcgan_lazy_r1": (_rgb_small_config({"r1_interval": 2}, dcgan=True),
+                              [torch.cat([dcgan_make_hidden(g, 2, 32)] * 2) for _ in range(2)], STEP_ATOL),
+        "rgb_stylegan_bf16": (_rgb_small_config({"mixed16": True}), [torch.cat([stylegan_make_hidden(g, 2, 32)] * 2)],
+                              STEP_BF16_ATOL),
+    }
+    _reset_launches()
+    for phase, (config, zs, atol) in runs.items():
+        losses = {}
+        for device in ("cpu", "cuda"):
+            trainer = Trainer(config, dataset=data, seed=0, device=device)  # same weights
+            losses[device] = []
+            for it, z in enumerate(zs):
+                spec = trainer._spec_for(it, 6)
+                x = torch.from_numpy(data[4 * it:4 * it + 4].transpose(0, 2, 3, 1).copy()).to(device)
+                _, metrics = trainer._step(spec)(trainer.state, x, 0.0, z=z)
+                losses[device].append({k: float(v) for k, v in metrics.items() if "loss" in k})
+        worst = _hold(phase, losses, atol)
+        log(phase, cpu=json.dumps(losses["cpu"]), cuda=json.dumps(losses["cuda"]), max_abs_diff=f"{worst:.3e}",
+            rtol=STEP_RTOL, atol=atol)
+        if "gen/loss_rotate" in losses["cuda"][0]:
+            raise AssertionError(f"{phase}: the RGB step took a 3D loss")
+        if len(zs) == 2 and not (losses["cuda"][0]["dis/loss_gp"] > 0 and losses["cuda"][1]["dis/loss_gp"] == 0):
+            raise AssertionError(f"{phase}: lazy R1 on the wrong step: {losses['cuda']}")
+
+    # the legacy step: the same draws on both devices, mixing forced on in both
+    # phases. Its D phase renders through the generator *after* Adam's first
+    # step, which moves each element by about alpha times the sign of its
+    # gradient, so its dis/loss_adv is held as phase 6 holds the DeepVoxels
+    # one (DIS_AFTER_UPDATE_ATOL, and the share of generator elements apart
+    # by MAX_SHARE_APART); the losses before the update to phase 5's
+    # tolerance. At the plain init (the 4x4 constant all ones) float32 noise
+    # picks most of those signs: dis/loss_adv read 7.5e-2 apart on the card
+    # (NVIDIA H100 80GB HBM3, 700 W), and on the CPU moving the weights by
+    # 1e-7 of themselves moved it by 3.5e-2. So both start from weights
+    # moved by seeded noise, as the CPU parity tests do: there the same 1e-7
+    # moves it by 2.6e-6, and the card read 3.7e-3.
+    draws = {k: stylegan_make_hidden(g, 4, 32) for k in ("z", "z2", "z_d", "z2_d")}
+    losses, params = {}, {}
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(_rgb_small_config({}), dataset=data, seed=0, device=device)
+        noise = torch.Generator().manual_seed(10)
+        with torch.no_grad():
+            for p in list(trainer.state.gen.parameters()) + list(trainer.state.dis.parameters()):
+                p.add_((0.05 * torch.randn(p.shape, generator=noise)).to(device))
+        step = make_legacy_train_step(trainer.make_hidden, StepSpec(stage_floor=6, batch_size=4, max_stage=7,
+                                                                    style_mixing_rate=1.0))
+        x = torch.from_numpy(data[:4].transpose(0, 2, 3, 1).copy()).to(device)
+        _, metrics = step(trainer.state, x, 0.0, mix=True, mix_d=True, **draws)
+        losses[device] = {k: float(v) for k, v in metrics.items() if "loss" in k}
+        params[device] = torch.cat([p.detach().flatten().cpu() for p in trainer.state.gen.parameters()])
+    after = abs(losses["cpu"]["dis/loss_adv"] - losses["cuda"]["dis/loss_adv"])
+    apart = float(((params["cpu"] - params["cuda"]).abs() > 1e-4).float().mean())
+    before = {device: [{k: v for k, v in ls.items() if k != "dis/loss_adv"}] for device, ls in losses.items()}
+    worst = _hold("legacy_step_parity", before, STEP_ATOL)
+    log("legacy_step_parity", cpu=json.dumps(losses["cpu"]), cuda=json.dumps(losses["cuda"]),
+        max_abs_diff_before_update=f"{worst:.3e}", rtol=STEP_RTOL, atol=STEP_ATOL,
+        dis_after_update_abs_diff=f"{after:.3e}", dis_after_update_atol=DIS_AFTER_UPDATE_ATOL,
+        share_of_generator_elements_apart=f"{apart:.5f}")
+    if not (math.isfinite(losses["cuda"]["dis/loss_adv"]) and after <= DIS_AFTER_UPDATE_ATOL):
+        raise AssertionError(f"legacy step parity: dis/loss_adv after the update {after:.3e} apart")
+    if apart > MAX_SHARE_APART:
+        raise AssertionError(f"legacy step parity: {apart:.4f} of the generator's elements ended apart")
+
+    # the heads' forwards, training mode (the encoder's BatchNorm on the batch's statistics)
+    heads = {
+        "encoder": (Encoder(32, 16, generator=torch.Generator().manual_seed(0)), [(4, 32, 32, 3)], (5, 0.3)),
+        "bigbigan": (BigBiGANDiscriminator(32, 16, res=True, generator=torch.Generator().manual_seed(0)),
+                     [(4, 32, 32, 3), (4, 16), (4, 9)], (6, 0.0)),
+        "disentangled": (DisentangledDiscriminator(32, res=True, generator=torch.Generator().manual_seed(0)),
+                         [(4, 32, 32, 3)], (5, 0.3)),
+    }
+    apart = {}
+    for name, (module, shapes, static) in heads.items():
+        inputs = [torch.randn(*shape, generator=g) for shape in shapes]
+        on_card = copy.deepcopy(module).cuda()
+        with torch.no_grad():
+            want = module(*inputs, *static)
+            got = on_card(*[t.cuda() for t in inputs], *static)
+        want, got = (want if isinstance(want, tuple) else (want,)), (got if isinstance(got, tuple) else (got,))
+        apart[name] = max(float((a - b.cpu()).abs().max()) / float(a.abs().max()) for a, b in zip(want, got))
+    log("heads_parity", rel_diff=json.dumps({k: f"{v:.3e}" for k, v in apart.items()}), rel_tol=HEAD_REL)
+    if any(v > HEAD_REL for v in apart.values()):
+        raise AssertionError(f"heads parity: {apart} above {HEAD_REL}")
+    _no_kernel_launched("rgb_step_parity")
+
+
+def phase_rgb_paths(torch, has_yaml: bool):
+    """Phase 19: the full-width RGB paths through the CLI's run function
+    (StyleGAN f32 and bf16, DCGAN f32), each launching no kernel of the
+    port; ``cli/evaluate.py --preview`` on the StyleGAN RGB snapshot; the
+    legacy step at full width; and the nvprof run of
+    ``structured_spheres_dcgan.yml`` with ``rgb: True``."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    paths, lifts = {}, {}
+    eval_counts = {}
+
+    def preview(config):
+        from rgbd_gan_tpu_torch.cli import evaluate
+
+        _reset_launches()
+        results = evaluate.run(config, preview=True)
+        torch.cuda.synchronize()
+        eval_counts.update(_no_kernel_launched("eval_preview_rgb"))
+        grid = _read_grid(results["preview"])
+        log("eval_preview_rgb", grid=json.dumps(list(grid.shape)), launches=json.dumps(eval_counts))
+        if grid.shape != (8 * 128, 8 * 128, 3):
+            raise AssertionError(f"rgb eval preview: grid of shape {grid.shape}, not 8x8 RGB images of 128 px")
+
+    paths["stylegan_rgb"], lifts["stylegan_rgb"], _ = _drive(
+        torch, has_yaml, "main_path_rgb", FFHQ_STYLEGAN_RGB, 128, "ffhq_stylegan_rgb", after=preview,
+        bilinear_per_step=BILINEAR_NONE)
+    sites = {"gen.gen.block5.c1": bf16, "gen.gen.out5": f32, "dis.block1.c0": bf16}
+    paths["stylegan_rgb_bf16"], lifts["stylegan_rgb_bf16"], _ = _drive(
+        torch, has_yaml, "main_path_rgb_bf16", dict(FFHQ_STYLEGAN_RGB, mixed16=True), 128, "ffhq_stylegan_rgb_bf16",
+        sites, bilinear_per_step=BILINEAR_NONE)
+    paths["dcgan_rgb"], lifts["dcgan_rgb"], _ = _drive(
+        torch, has_yaml, "main_path_dcgan_rgb", DCGAN_SHAPENET_CAR_RGB, 128, "dcgan_shapenet_car_rgb",
+        bilinear_per_step=BILINEAR_NONE)
+    paths["legacy"], lifts["legacy"] = _legacy_path(torch)
+
+    def profiled(config):
+        trace = os.path.join(config.out, "profile", "trace.json")
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        with open(trace) as f:
+            text = f.read() if size else ""
+        kernel_events = len(re.findall(r'"cat":\s*"kernel"', text))
+        grids = {sub: list(_read_grid(os.path.join(config.out, sub, "image_latest.png")).shape)
+                 for sub in ("preview", "preview_smoothed")}
+        log("nvprof_rgb", trace_bytes=size, kernel_events=kernel_events, grids=json.dumps(grids))
+        if not (size and '"traceEvents"' in text and kernel_events):
+            raise AssertionError(f"nvprof: no trace with CUDA kernels at {trace} ({size} bytes)")
+        if any(tuple(shape) != (8 * 64, 8 * 64, 3) for shape in grids.values()):
+            raise AssertionError(f"nvprof: preview grids of shapes {grids}")
+
+    paths["dcgan_rgb_nvprof"], lifts["dcgan_rgb_nvprof"], _ = _drive(
+        torch, has_yaml, "main_path_dcgan_rgb_nvprof", STRUCTURED_SPHERES_DCGAN_NVPROF, 32,
+        "structured_spheres_dcgan_rgb_nvprof", after=profiled, bilinear_per_step=BILINEAR_NONE,
+        iterations=NVPROF_ITERATIONS)
+    paths["rgb_eval_preview"], lifts["rgb_eval_preview"] = eval_counts["bilinear"], eval_counts["trilinear"]
+    if any(v for lift in lifts.values() for v in lift.values()):
+        raise AssertionError(f"rgb paths: the lift launched {lifts}")
+    return paths, lifts
+
+
+def _legacy_path(torch):
+    """The legacy step at the StyleGAN yml's widths (ch 256, batch 32, 128 px,
+    an RGB generator, R1) with the legacy updater's style mixing, 3 steps on
+    the trainer's stream of draws; each step timed to its end."""
+    from rgbd_gan_tpu_torch.core.config import Config
+    from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
+    from rgbd_gan_tpu_torch.train.legacy import make_legacy_train_step
+    from rgbd_gan_tpu_torch.train.steps import StepSpec
+    from rgbd_gan_tpu_torch.train.trainer import Trainer
+
+    values = dict(FFHQ_STYLEGAN_RGB, style_mixing_rate=LEGACY_MIXING_RATE)
+    trainer = Trainer(Config(values), dataset=synthetic_dataset(64, 128), seed=0, device="cuda")
+    spec = StepSpec(stage_floor=10, batch_size=values["batchsize"], max_stage=values["max_stage"],
+                    style_mixing_rate=LEGACY_MIXING_RATE)
+    step = make_legacy_train_step(trainer.make_hidden, spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    step_ms, rows = [], []
+    for _ in range(LEGACY_STEPS):
+        x = torch.from_numpy(trainer.iterator.next()).cuda()
+        t0 = time.perf_counter()
+        _, metrics = step(trainer.state, x, 0.0, trainer.rng)
+        rows.append({k: float(v) for k, v in metrics.items()})  # the host reads the losses: the step has ended
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = _no_kernel_launched("legacy_path")
+    log("legacy_path", steps=LEGACY_STEPS, style_mixing_rate=LEGACY_MIXING_RATE,
+        step_ms=json.dumps([round(t, 3) for t in step_ms]), median_ms_per_step_2_3=f"{statistics.median(step_ms[1:]):.3f}",
+        img_per_s=f"{values['batchsize'] * 1e3 / statistics.median(step_ms[1:]):.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}", last=json.dumps(rows[-1]))
+    if not all(math.isfinite(v) for row in rows for v in row.values()) or any(row["nan"] for row in rows):
+        raise AssertionError(f"legacy path: losses not finite {rows}")
+    return counts["bilinear"], counts["trilinear"]
+
+
 def main() -> int:
     import torch
 
@@ -1612,6 +1872,10 @@ def main() -> int:
     family_paths, family_lift = phase_family_paths(torch, has_yaml)
     by_path.update(family_paths)
     lift_by_path.update(family_lift)
+    phase_rgb_step_parity(torch)
+    rgb_paths, rgb_lift = phase_rgb_paths(torch, has_yaml)
+    by_path.update(rgb_paths)
+    lift_by_path.update(rgb_lift)
     log("wall", seconds=f"{time.perf_counter() - started:.1f}")
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):

@@ -1,4 +1,6 @@
-"""Evaluation CLI: FID, Inception Score and the camera-sweep preview of a run.
+"""Evaluation CLI: FID, Inception Score and the camera-sweep preview of a run
+(of an RGB run, ``rgb: True``, the preview without a sweep and the scores of
+images rendered without a pose).
 
     python -m rgbd_gan_tpu_torch.cli.evaluate --config_path configs/X.yml \
         [--snapshot latest] [--preview] [--fid [--stat_file stats.npz]] \
@@ -77,10 +79,10 @@ def run(
         if trainer.arch == "deepvoxels":
             gen = fid_mod.deepvoxels_image_sampler(gen_apply, trainer.make_hidden, trainer.prior, floor, alpha, draws)
         else:
-            gen = fid_mod.rgbd_image_sampler(
-                gen_apply, trainer.make_hidden, floor, alpha,
-                lambda g, n: theta_to_9dof(trainer.prior.sample(g, n, trainer.device)), draws,
-            )
+            # an RGB generator takes no pose (cli/evaluate.py:91 of the JAX package)
+            theta9_sampler = None if config.rgb else (
+                lambda g, n: theta_to_9dof(trainer.prior.sample(g, n, trainer.device)))
+            gen = fid_mod.rgbd_image_sampler(gen_apply, trainer.make_hidden, floor, alpha, theta9_sampler, draws)
         if fid:
             stat_file = stat_file or os.path.join(trainer.out, "real_stats.npz")
             if not os.path.exists(stat_file):

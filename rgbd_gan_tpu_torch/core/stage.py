@@ -43,6 +43,11 @@ def stage_at(iteration: int, stage_interval: Sequence[int], max_stage: int) -> f
     return max_stage - STAGE_EPS
 
 
+def legacy_stage_at(iteration: int, stage_interval: int, max_stage: int) -> float:
+    """Linear schedule of the legacy RGB updater (``updater.py:96-98``)."""
+    return min(iteration / stage_interval, max_stage - STAGE_EPS)
+
+
 def decompose_stage(stage: float, max_stage: int = MAX_STAGE_DEFAULT) -> Tuple[int, float]:
     """Clamp and split a float stage into (floor, fade-in alpha).
 

@@ -9,6 +9,8 @@ Port of :mod:`rgbd_gan_tpu.eval.preview`: ``sample_generate_light``
 - rendered in chunks of 16 images, so the grid's forward does not need the
   memory of 64 at once beside the train state
 - depth rows are colourised as ``clip(1/depth * 128, 0, 255)``
+- with ``rgb: True`` there is no sweep: the generator gets no pose, and the
+  grid holds the RGB rows alone
 - writes ``[out]/preview/image_latest.png`` and the image named after the
   iteration floored to 10k; without PIL the grid goes to
   ``[out]/preview_latest.npy``
@@ -54,20 +56,25 @@ def render_preview_float(
     ``gen_apply(z, stage_floor, alpha, theta9, mats)`` returns NHWC images
     (``mats`` is for the DeepVoxels generator; the others ignore it);
     ``make_hidden(np_rng, n)`` draws latents on the host, so the fixed seed
-    gives the reference's ``np.random.seed(seed)`` latents."""
+    gives the reference's ``np.random.seed(seed)`` latents. An RGB config
+    (``rgb: True``) passes ``theta9`` and ``mats`` as ``None``
+    (``eval/preview.py:67-69`` of the JAX package)."""
     rng = np.random.RandomState(seed)
     z = make_hidden(rng, cols)
     # the same z down each column (train_rgbd.py:52)
     z = np.tile(z[:, None], (1, rows) + (1,) * (z.ndim - 1)).reshape(rows * cols, *z.shape[1:])
-    theta = np.zeros((rows * cols, 6), dtype="float32")
-    theta[:, 1] = np.tile(np.linspace(-config.test_y_rotate, config.test_y_rotate, rows), cols)
-    theta9 = np.concatenate([np.cos(theta[:, :3]), np.sin(theta[:, :3]), theta[:, 3:]], axis=1).astype("float32")
-    mats = camera_matrices(torch.from_numpy(theta)).numpy()
+    theta9 = mats = None
+    if not config.rgb:
+        theta = np.zeros((rows * cols, 6), dtype="float32")
+        theta[:, 1] = np.tile(np.linspace(-config.test_y_rotate, config.test_y_rotate, rows), cols)
+        theta9 = np.concatenate([np.cos(theta[:, :3]), np.sin(theta[:, :3]), theta[:, 3:]], axis=1).astype("float32")
+        mats = camera_matrices(torch.from_numpy(theta)).numpy()
     floor, alpha = decompose_stage(stage, config.max_stage or 17)
     outs = []
     for i in range(0, z.shape[0], PREVIEW_CHUNK):
         sl = slice(i, i + PREVIEW_CHUNK)
-        outs.append(gen_apply(z[sl], floor, alpha, theta9[sl], mats[sl]).float().cpu().numpy())
+        t9, ms = (None, None) if theta9 is None else (theta9[sl], mats[sl])
+        outs.append(gen_apply(z[sl], floor, alpha, t9, ms).float().cpu().numpy())
     return np.concatenate(outs, axis=0).transpose(0, 3, 1, 2)  # NHWC -> NCHW
 
 

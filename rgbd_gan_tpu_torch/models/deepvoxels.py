@@ -58,6 +58,7 @@ from torch import nn
 
 from ..nn.layers import (
     AdaINBlock,
+    BatchNorm,
     EqualizedConv2D,
     EqualizedConv3D,
     EqualizedLinear,
@@ -223,36 +224,6 @@ class Conv3dSame(nn.Module):
             # F.pad reflects the trailing axes: pad (D, H, W) in the NCDHW view
             x = F.pad(x.permute(0, 4, 1, 2, 3), (ka, kb) * 3, mode="reflect").permute(0, 2, 3, 4, 1)
         return self.conv(x)
-
-
-class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over the last axis: momentum 0.99, eps 1e-5,
-    batch variance ``mean(x^2) - mean(x)^2``, and running statistics updated
-    with the *biased* batch variance (``torch.nn.BatchNorm3d`` takes the
-    unbiased one). ``scale``/``bias`` are parameters, ``mean``/``var``
-    buffers, under flax's names."""
-
-    momentum = 0.99
-    eps = 1e-5
-
-    def __init__(self, features: int):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        if train:
-            axes = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_(mean.detach(), alpha=1.0 - self.momentum)
-                self.var.mul_(self.momentum).add_(var.detach(), alpha=1.0 - self.momentum)
-        else:
-            mean, var = self.mean, self.var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
 
 
 # ---------------------------------------------------------------------------

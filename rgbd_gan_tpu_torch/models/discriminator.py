@@ -1,5 +1,5 @@
-"""PGGAN discriminator (NHWC) — port of ``Discriminator`` in
-:mod:`rgbd_gan_tpu.models.discriminator` (reference ``net.py:357-504``).
+"""PGGAN discriminators (NHWC) — port of :mod:`rgbd_gan_tpu.models.discriminator`
+(reference ``net.py:357-599``).
 
 D sees RGB only. Progressive fade-in mirrors the generator; the 32x32
 hidden feature (tapped before ``block3``) is returned with
@@ -10,6 +10,10 @@ hidden tap are returned in float32. ``sn=True`` swaps every conv and
 linear for its spectrally normalised twin (``nn.layers.SNConv2D`` /
 ``SNLinear``), whose power-iteration vectors ``u`` are buffers advanced by
 each training-mode forward: the JAX package's mutable ``sn`` collection.
+``DiscriminatorBlock(bn=True)`` puts flax's BatchNorm after each conv (the
+encoder's blocks); ``DisentangledDiscriminator`` (``net.py:507-599``,
+declared in the reference and unused by the shipped configs) runs a shared
+trunk into camera, z and adversarial heads.
 """
 
 from __future__ import annotations
@@ -19,7 +23,16 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn.layers import EqualizedConv2D, EqualizedLinear, SNConv2D, SNLinear, blur3x3, downscale2x, leaky_relu
+from ..nn.layers import (
+    BatchNorm,
+    EqualizedConv2D,
+    EqualizedLinear,
+    SNConv2D,
+    SNLinear,
+    blur3x3,
+    downscale2x,
+    leaky_relu,
+)
 
 MAX_STAGE = 17
 
@@ -52,7 +65,9 @@ class DiscriminatorBlockBase(nn.Module):
 
 
 class DiscriminatorBlock(nn.Module):
-    """conv x2 (+ residual conv shortcut) then 2x2 average pool (``net.py:380-426``)."""
+    """conv x2 (+ BatchNorm after each with ``bn``, + residual conv shortcut)
+    then 2x2 average pool (``net.py:380-426``). ``train`` picks the batch's
+    statistics (updating the running ones) or the running ones."""
 
     def __init__(
         self,
@@ -61,17 +76,26 @@ class DiscriminatorBlock(nn.Module):
         enable_blur: bool = False,
         res: bool = False,
         sn: bool = False,
+        bn: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.in_ch, self.enable_blur, self.res = in_ch, enable_blur, res
+        self.in_ch, self.enable_blur, self.res, self.bn = in_ch, enable_blur, res, bn
         self.c0 = _conv(sn, in_ch, out_ch, 3, 1, 1, generator)
         self.c1 = _conv(sn, out_ch, out_ch, 3, 1, 1, generator)
+        if bn:
+            self.b0 = BatchNorm(out_ch)
+            self.b1 = BatchNorm(out_ch)
         if res:
             self.c_sc = _conv(sn, in_ch, out_ch, 3, 1, 1, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.c1(leaky_relu(self.c0(x)))
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        h = self.c0(x)
+        if self.bn:
+            h = self.b0(h, train)
+        h = self.c1(leaky_relu(h))
+        if self.bn:
+            h = self.b1(h, train)
         if self.res:
             h = h + self.c_sc(x)
         h = downscale2x(leaky_relu(h))
@@ -144,3 +168,61 @@ class Discriminator(nn.Module):
         if return_hidden:
             return h, (feat.float() if feat is not None else None)
         return h
+
+
+class DisentangledDiscriminator(nn.Module):
+    """A shared trunk of seven blocks, then three block + head pairs: the 9
+    camera parameters, ``ch * num_z`` latent estimates and the adversarial
+    logit (``net.py:507-599``). Returns ``(logit, camera, z)``."""
+
+    def __init__(
+        self,
+        ch: int = 512,
+        enable_blur: bool = False,
+        sn: bool = False,
+        res: bool = False,
+        num_z: int = 2,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        shared = [(ch, ch), (ch, ch), (ch // 2, ch), (ch // 4, ch // 2), (ch // 8, ch // 4),
+                  (ch // 16, ch // 8), (ch // 32, ch // 16)]
+
+        def block(c_in, c_out):
+            return DiscriminatorBlock(c_in, c_out, enable_blur=enable_blur, res=res, sn=sn, generator=generator)
+
+        for i, (c_in, c_out) in enumerate(shared):
+            self.add_module(f"shared{i}", block(c_in, c_out))
+        self.cam_block = block(ch, ch)
+        self.cam_head = DiscriminatorBlockBase(ch, out_dim=9, sn=sn, generator=generator)
+        self.z_block = block(ch, ch)
+        self.z_head = DiscriminatorBlockBase(ch, out_dim=ch * num_z, sn=sn, generator=generator)
+        self.adv_block = block(ch, ch)
+        self.adv_head = DiscriminatorBlockBase(ch, out_dim=1, sn=sn, generator=generator)
+        ins = [ch, ch, ch, ch, ch // 2, ch // 4, ch // 8, ch // 16, ch // 32]
+        for i, c in enumerate(ins):
+            self.add_module(f"in{i}", _conv(sn, 3, c, 1, 1, 0, generator))
+
+    def _shared(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"shared{i}")(h)
+
+    def _in(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(getattr(self, f"in{i}")(x))
+
+    def forward(self, x: torch.Tensor, stage_floor: int, alpha=0.0):
+        stage = min(int(stage_floor), MAX_STAGE - 1)
+        if stage % 2 == 0:
+            k = (stage - 2) // 2
+            h = self._in(k + 1, x)
+            for i in reversed(range(0, k)):
+                h = self._shared(i, h)
+        else:
+            k = (stage - 1) // 2
+            h_0 = self._in(k, downscale2x(x))
+            h_1 = self._shared(k - 1, self._in(k + 1, x))
+            h = (1.0 - alpha) * h_0 + alpha * h_1
+            for i in reversed(range(0, k - 1)):
+                h = self._shared(i, h)
+        est_camera = self.cam_head(self.cam_block(h))
+        est_z = self.z_head(self.z_block(h))
+        return self.adv_head(self.adv_block(h)), est_camera, est_z

@@ -64,6 +64,13 @@ MAX_STAGE = 17
 MIN_SAMPLE_IMAGE_SIZE = 64  # eval-mode minimum output size (net.py:306)
 
 
+def mapping_make_hidden(
+    generator: Optional[torch.Generator], batch_size: int, ch: int, device: torch.device | str = "cpu"
+) -> torch.Tensor:
+    """Plain N(0, 1) (B, ch) latent of the legacy RGB path (``net.py:47-56``)."""
+    return torch.randn(batch_size, ch, generator=generator, device=device)
+
+
 def stylegan_make_hidden(
     generator: Optional[torch.Generator], batch_size: int, ch: int, device: torch.device | str = "cpu"
 ) -> torch.Tensor:

@@ -14,6 +14,8 @@ DeepVoxels train steps run (reference ``common/networks/component/``):
 - spectrally normalised conv and linear layers, the twins of Chainer's
   SpectralNormalization hook: a power-iteration vector ``u`` kept as a
   buffer and advanced once by every training-mode forward
+- flax's ``nn.BatchNorm`` (the DeepVoxels occlusion nets and RenderNet, the
+  encoder and a discriminator block with ``bn``)
 - the 3D twins for the voxel generator: equalized 3D conv (``pggan.py:27-38``,
   with its ``k**2`` fan-in quirk), nearest 2x unpool over (D, H, W), and
   Chainer's ``F.normalize`` over channels
@@ -303,6 +305,36 @@ class SNLinear(_SpectralNorm):
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         return _add_bias(F.linear(x, self.normalized_weight().to(x.dtype)), self.bias)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis: momentum 0.99, eps 1e-5,
+    batch variance ``mean(x^2) - mean(x)^2``, and running statistics updated
+    with the *biased* batch variance (``torch.nn.BatchNorm3d`` takes the
+    unbiased one). ``scale``/``bias`` are parameters, ``mean``/``var``
+    buffers, under flax's names."""
+
+    momentum = 0.99
+    eps = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = torch.mean(x, dim=axes)
+            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(mean.detach(), alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(var.detach(), alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
 
 
 def init_depth_head_(conv: EqualizedConv2D, initial_depth: float) -> None:

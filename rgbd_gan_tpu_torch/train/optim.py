@@ -6,6 +6,9 @@ for StyleGAN the mapping network is its own optimizer (own clipping domain)
 at ``alpha/100`` and the camera-conditioning layers ``l1``/``l2`` step at
 ``alpha/100`` inside the synthesis optimizer (``train_rgbd.py:314-327``).
 
+The multi-GPU learning-rate table (``config.py:3-17``) comes along keyed on
+the device count; the legacy step multiplies both losses by its factor.
+
 The arithmetic is optax's ``chain(clip_by_global_norm(5), adam(...))``:
 gradients are scaled only when their global norm is not below 5, and the
 step is ``mu_hat / (sqrt(nu_hat) + eps)`` with bias corrections taken in
@@ -15,6 +18,7 @@ flax tree would.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +27,25 @@ import torch
 NamedParams = Sequence[Tuple[str, torch.nn.Parameter]]
 MAX_NORM = 5.0  # GradientClipping(5)
 EPS = 1e-8
+
+# per-(device-count, stage) learning-rate multiplier (reference config.py:3-17)
+LR_SCALE_TABLE = {
+    1: {15: 1.5, 16: 1.5, 17: 1.5},
+    2: {13: 1.5, 14: 1.5, 15: 2, 16: 2, 17: 2},
+    3: {11: 1.5, 12: 1.5, 13: 2, 14: 2, 15: 2.5, 16: 2.5, 17: 2.5},
+    4: {11: 1.5, 12: 1.5, 13: 2, 14: 2, 15: 3, 16: 3, 17: 3},
+    8: {9: 1.5, 10: 1.5, 11: 2, 12: 2, 13: 3, 14: 3, 15: 3, 16: 3, 17: 3},
+}
+
+
+def get_lr_scale_factor(total_devices: int, stage: float) -> float:
+    """The table's factor at the floor of ``stage``; an unknown device count
+    reads the one-device row, a stage from 18 on reads stage 17's."""
+    table = LR_SCALE_TABLE.get(total_devices, LR_SCALE_TABLE[1])
+    stage = math.floor(stage)
+    if stage >= 18:
+        return table[17]
+    return table.get(stage, 1)
 
 
 class ClippedAdam:
@@ -74,6 +97,8 @@ class ClippedAdam:
         torch._foreach_add_(denom, EPS)
         upd = torch._foreach_div(mu_hat, denom)
         for start, stop, lr, scale in self.group_slices:
+            if start == stop:  # an empty group (the RGB generator has no l1/l2)
+                continue
             u = torch._foreach_mul(upd[start:stop], -lr)
             if scale != 1.0:
                 torch._foreach_mul_(u, scale)
@@ -100,16 +125,18 @@ def make_optimizer(named_params: NamedParams, alpha: float, beta1: float, beta2:
 
 
 def make_stylegan_gen_optimizer(
-    named_params: NamedParams, alpha: float, beta1: float, beta2: float
+    named_params: NamedParams, alpha: float, beta1: float, beta2: float, rgbd: bool
 ) -> ClippedAdam:
-    """RGBD synthesis-network optimizer: one clipping domain, with the
-    ``l1``/``l2`` camera-conditioning layers stepped at ``alpha/100``
-    (``train_rgbd.py:323-327``)."""
+    """Synthesis-network optimizer: one clipping domain; for an RGBD
+    generator the ``l1``/``l2`` camera-conditioning layers step at
+    ``alpha/100`` (``train_rgbd.py:323-327``). An RGB generator has no
+    camera conditioning: with ``rgbd=False`` every parameter steps at
+    ``alpha``, whatever its name."""
     named = list(named_params)
 
     def slow(name: str) -> bool:
         parts = name.split(".")
-        return "l1" in parts or "l2" in parts
+        return rgbd and ("l1" in parts or "l2" in parts)
 
     fast = [(n, p) for n, p in named if not slow(n)]
     slow_ = [(n, p) for n, p in named if slow(n)]

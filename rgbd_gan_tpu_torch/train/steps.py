@@ -1,5 +1,7 @@
-"""The RGBD G+D train step (reference ``RGBDUpdater.update_core``,
-``updater.py:274-448``) — port of :func:`rgbd_gan_tpu.train.steps.make_rgbd_train_step`.
+"""The RGBD and the RGB G+D train steps (reference ``RGBDUpdater.update_core``,
+``updater.py:274-448``, and ``RGBUpdater.update_core``, ``updater.py:503-589``)
+— port of :func:`rgbd_gan_tpu.train.steps.make_rgbd_train_step` and
+:func:`~rgbd_gan_tpu.train.steps.make_rgb_train_step`.
 
 One iteration:
  1. paired latents ``z = concat([make_hidden(B/2)] * 2)`` and paired 6-DoF
@@ -31,6 +33,12 @@ on the reals, as the JAX step threads its ``sn`` collection.
 
 Under ``mixed16`` the reals reach D's R1 forward already cast to D's compute
 dtype, so the input gradient is rounded to bf16 as in the JAX step.
+
+The RGB step (``rgb: True``) has the same skeleton without camera
+conditioning and without any 3D loss: the generator renders RGB from the
+latent alone, yet the latents are still drawn in pairs
+(``updater.py:525``, the reference's quirk). Its D phase is the RGBD
+step's without the feature 3D-consistency terms.
 
 The step mutates the state in place.
 """
@@ -72,6 +80,8 @@ class StepSpec:
     use_occupancy: bool = False
     lambda_occupancy: float = 1.0
     sn: bool = False
+    # the legacy step's chance of taking the fine half of z from a second latent
+    style_mixing_rate: float = 0.0
     # data parallelism: refused, not ported yet
     axis_name: Optional[str] = None
 
@@ -100,6 +110,59 @@ def _feature_rotate_loss(feat: torch.Tensor, x_real: torch.Tensor, mats: torch.T
         lambda_geometric=spec.lambda_geometric, gather_mode=spec.gather_mode,
     )
     return loss
+
+
+def _update_gen(state: TrainState, spec: StepSpec, loss_gen: torch.Tensor) -> None:
+    """Adam on the generator: for StyleGAN two clipping domains, the mapping
+    (alpha/100) and the synthesis network; for DCGAN one over the whole
+    generator. Then the EMA soft copy."""
+    if spec.architecture == "stylegan":
+        n_map = len(state.opt_map.params)
+        grads = torch.autograd.grad(loss_gen, state.opt_map.params + state.opt_gen.params, allow_unused=True)
+        state.opt_map.step(grads[:n_map])
+        state.opt_gen.step(grads[n_map:])
+    else:
+        state.opt_gen.step(torch.autograd.grad(loss_gen, state.opt_gen.params, allow_unused=True))
+    state.gen.requires_grad_(False)
+    if spec.keep_smoothed_gen and state.ema_gen is not None:
+        soft_copy_params(state.ema_gen, state.gen, 1.0 - spec.smoothing)
+
+
+def _dis_adv_and_penalty(
+    state: TrainState, spec: StepSpec, x_fake_rgb: torch.Tensor, x_real: torch.Tensor, stage: int, alpha,
+    metrics: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """D's loss on the detached fakes and the reals, plus the R1 penalty
+    (every ``r1_interval`` steps, none with SN); returns it and D's feature
+    tap on the fakes. Leaves D's parameters requiring gradients."""
+    dis = state.dis
+    dis.requires_grad_(True)
+    y_fake, feat_fake = dis(x_fake_rgb, stage, alpha, return_hidden=True)
+    if not spec.sn and spec.lambda_gp > 0:
+        x_r1 = _in_dtype_of(dis, x_real)
+        if state.iteration % spec.r1_interval == 0:
+            # one D(x_real) forward feeds both the adversarial term and R1
+            y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_r1)
+            gp = spec.lambda_gp * spec.r1_interval * gp_raw
+        else:
+            y_real, gp = dis(x_r1, stage, alpha), torch.zeros((), device=x_real.device)
+        metrics["dis/loss_gp"] = gp.detach()
+        return dis_adv_loss(y_fake, y_real) + gp, feat_fake
+    return dis_adv_loss(y_fake, dis(x_real, stage, alpha)), feat_fake
+
+
+def _update_dis(state: TrainState, loss_dis: torch.Tensor) -> None:
+    dis_params = list(state.dis.parameters())
+    state.opt_dis.step(torch.autograd.grad(loss_dis, dis_params, allow_unused=True))
+    state.dis.requires_grad_(False)
+
+
+def _finish(state: TrainState, metrics, loss_gen, loss_dis, stage: int, alpha, image_size: int, device):
+    metrics["stage"] = torch.tensor(float(stage) + float(alpha), device=device)
+    metrics["image_size"] = torch.tensor(float(image_size), device=device)
+    metrics["nan"] = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
+    state.iteration += 1
+    return state, metrics
 
 
 def make_rgbd_train_step(
@@ -185,35 +248,12 @@ def make_rgbd_train_step(
                 metrics["gen/loss_occupancy"] = loss_occ.detach()
                 loss_gen = loss_gen + loss_occ * spec.lambda_occupancy
 
-        if spec.architecture == "stylegan":
-            # two clipping domains: mapping (alpha/100) and synthesis
-            n_map = len(state.opt_map.params)
-            grads = torch.autograd.grad(loss_gen, state.opt_map.params + state.opt_gen.params, allow_unused=True)
-            state.opt_map.step(grads[:n_map])
-            state.opt_gen.step(grads[n_map:])
-        else:
-            state.opt_gen.step(torch.autograd.grad(loss_gen, state.opt_gen.params, allow_unused=True))
-        gen.requires_grad_(False)
-        if spec.keep_smoothed_gen and state.ema_gen is not None:
-            soft_copy_params(state.ema_gen, gen, 1.0 - spec.smoothing)
+        _update_gen(state, spec, loss_gen)
 
         # ---------------- discriminator phase ----------------
         # D sees the *pre-update* fakes, detached (updater.py:407)
         x_fake_rgb = x_fake[..., :3].detach().requires_grad_(feature_penalty)
-        dis.requires_grad_(True)
-        y_fake, feat_fake = dis(x_fake_rgb, stage, alpha, return_hidden=True)
-        if r1:
-            x_r1 = _in_dtype_of(dis, x_real)
-            if state.iteration % spec.r1_interval == 0:
-                # one D(x_real) forward feeds both the adversarial term and R1
-                y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_r1)
-                gp = spec.lambda_gp * spec.r1_interval * gp_raw
-            else:
-                y_real, gp = dis(x_r1, stage, alpha), torch.zeros((), device=device)
-            loss_dis = dis_adv_loss(y_fake, y_real) + gp
-            metrics["dis/loss_gp"] = gp.detach()
-        else:
-            loss_dis = dis_adv_loss(y_fake, dis(x_real, stage, alpha))
+        loss_dis, feat_fake = _dis_adv_and_penalty(state, spec, x_fake_rgb, x_real, stage, alpha, metrics)
         if rotate_feature and feat_fake is not None:
             # D *maximises* the feature 3D-consistency error
             loss_dis = loss_dis - _feature_rotate_loss(feat_fake, x_real, mats, spec)
@@ -223,14 +263,50 @@ def make_rgbd_train_step(
                 g_norm = torch.sqrt(torch.sum(g_fake**2, dim=tuple(range(1, g_fake.dim()))) + 1e-24)
                 loss_dis = loss_dis + spec.lambda_gp * l2_loss(g_norm, 0.0)
         metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
-        dis_params = list(dis.parameters())
-        state.opt_dis.step(torch.autograd.grad(loss_dis, dis_params, allow_unused=True))
-        dis.requires_grad_(False)
+        _update_dis(state, loss_dis)
+        return _finish(state, metrics, loss_gen, loss_dis, stage, alpha, image_size, device)
 
-        metrics["stage"] = torch.tensor(float(stage) + float(alpha), device=device)
-        metrics["image_size"] = torch.tensor(float(image_size), device=device)
-        metrics["nan"] = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
-        state.iteration += 1
-        return state, metrics
+    return step
+
+
+def make_rgb_train_step(make_hidden: Callable[[Optional[torch.Generator], int], torch.Tensor], spec: StepSpec):
+    """Build the StyleGAN or DCGAN RGB train step for ``spec`` (reference
+    ``RGBUpdater``): no camera and no 3D loss, paired latents, R1 every
+    ``spec.r1_interval`` steps or SN; raises ``NotImplementedError`` for
+    ``axis_name``. Returns ``step(state, x_real_full, alpha, generator=None,
+    *, z=None) -> (state, metrics)``, the RGBD step's interface without the
+    poses; ``z`` replaces the step's own latents when given."""
+    if spec.axis_name is not None:
+        raise NotImplementedError("not ported yet: axis_name (data parallelism)")
+    stage = spec.stage_floor
+    half = spec.batch_size // 2
+
+    def step(
+        state: TrainState,
+        x_real_full: torch.Tensor,
+        alpha: float,
+        generator: Optional[torch.Generator] = None,
+        *,
+        z: Optional[torch.Tensor] = None,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        device = x_real_full.device
+        if z is None:
+            z = torch.cat([make_hidden(generator, half)] * 2, dim=0)  # paired (updater.py:525)
+        z = z.to(device)
+        x_real = downsize_real(_to_unit_range(x_real_full), stage, alpha, spec.max_stage)
+
+        # ---------------- generator phase ----------------
+        state.dis.requires_grad_(False)
+        state.gen.requires_grad_(True)
+        x_fake = state.gen(z, stage, alpha, None)
+        loss_gen = gen_adv_loss(state.dis(x_fake[..., :3], stage, alpha))
+        metrics = {"gen/loss_adv": loss_gen.detach()}
+        _update_gen(state, spec, loss_gen)
+
+        # ---------------- discriminator phase ----------------
+        loss_dis, _ = _dis_adv_and_penalty(state, spec, x_fake[..., :3].detach(), x_real, stage, alpha, metrics)
+        metrics["dis/loss_adv"] = loss_dis.detach()
+        _update_dis(state, loss_dis)
+        return _finish(state, metrics, loss_gen, loss_dis, stage, alpha, x_real.shape[1], device)
 
     return step

@@ -1,8 +1,9 @@
-"""Training loop for the StyleGAN, DCGAN and DeepVoxels RGBD paths: builds
-models, optimizers and the step from a config and runs the iteration loop.
+"""Training loop for the StyleGAN, DCGAN and DeepVoxels RGBD paths and the
+StyleGAN and DCGAN RGB paths: builds models, optimizers and the step from a
+config and runs the iteration loop.
 
-Port of :mod:`rgbd_gan_tpu.train.trainer` without its mesh, profiler and
-step windows (reference ``train_rgbd.py:261-474``): model and optimizer
+Port of :mod:`rgbd_gan_tpu.train.trainer` without its mesh and step windows
+(reference ``train_rgbd.py:261-474``): model and optimizer
 wiring (mapping at alpha/100 in its own clipping domain; for StyleGAN
 ``l1``/``l2`` at alpha/100 inside the synthesis domain, for DeepVoxels one
 optimizer over the whole generator, mapping included; DCGAN has no mapping
@@ -25,20 +26,27 @@ row and the NaN guard after each.
 Every single-chip option of the JAX trainer's step spec is on these paths:
 spectral norm (``sn``), ``rotate_feature``, ``rotate_conv_input``,
 ``use_occupancy_net_loss`` and, of DeepVoxels, ``background_generator`` and
-``rendernet_projection``. Refused: ``use_mpi`` and ``rgb`` (not ported yet),
-lazy R1 on the DeepVoxels step (as in the JAX package), ``occlusion_type:
-occlusion_unet`` (the JAX package cannot build it) and the eval-mode
-forward of a background generator (the JAX package's raises).
+``rendernet_projection``. ``rgb: True`` trains an RGB generator (no camera
+conditioning, a 3-channel head) with the RGB step (no 3D loss; the
+DeepVoxels step takes precedence, as in the JAX trainer), and its previews
+have no pose sweep. ``nvprof: True`` (or ``enable_cuda_profiling``) caps the
+run at 10 iterations and records them with ``torch.profiler`` into
+``[out]/profile/``, the twin of the JAX trainer's ``jax.profiler`` trace.
+Refused: ``use_mpi`` (not ported yet), lazy R1 on the DeepVoxels step (as in
+the JAX package), ``occlusion_type: occlusion_unet`` (the JAX package cannot
+build it) and the eval-mode forward of a background generator (the JAX
+package's raises).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 import traceback
 import warnings
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -54,7 +62,7 @@ from . import checkpoint as ckpt
 from .ema import copy_params
 from .optim import make_optimizer, make_stylegan_gen_optimizer
 from .state import TrainState
-from .steps import StepSpec, make_rgbd_train_step
+from .steps import StepSpec, make_rgb_train_step, make_rgbd_train_step
 from .steps_deepvoxels import DEEPVOXELS_STAGE, make_deepvoxels_train_step
 
 REPORT_KEYS = [
@@ -79,6 +87,7 @@ BACKGROUND_EVAL_FAULT = (
     "package's Trainer.gen_apply_eval passes no z3/z4 (rgbd_gan_tpu/train/trainer.py:392-394), so its "
     "forward raises AttributeError at z3.reshape (rgbd_gan_tpu/models/deepvoxels.py:780)"
 )
+PROFILED_ITERATIONS = 10  # the nvprof run's length (train_rgbd.py:363-364)
 
 
 def _check_config(config) -> None:
@@ -93,9 +102,7 @@ def _check_config(config) -> None:
     unported = {
         f"generator_architecture {config.generator_architecture}":
             config.generator_architecture not in ARCHITECTURES,
-        "rgb": bool(config.rgb),
         "use_mpi": bool(config.use_mpi),
-        "nvprof": bool(config.nvprof) or bool(config.enable_cuda_profiling),
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -118,16 +125,17 @@ def setup_generator(config, generator: Optional[torch.Generator] = None, on_cuda
     if config.generator_architecture == "deepvoxels":
         return build_deepvoxels_generator(config, generator, on_cuda)
     initial_depth = config.initial_depth if config.initial_depth is not None else 1.0
+    rgbd = not config.rgb
     if config.generator_architecture == "dcgan":
         gen = DCGANGenerator(
             in_ch=config.ch,  # quirk: the hidden width stays the default 512
-            enable_blur=bool(config.enable_blur), rgbd=True,
+            enable_blur=bool(config.enable_blur), rgbd=rgbd,
             use_occupancy_net=bool(config.use_occupancy_net_loss), initial_depth=initial_depth,
             compute_dtype=_compute_dtype(config), generator=generator,
         )
         return gen, (lambda g, n, device="cpu": dcgan_make_hidden(g, n, config.ch, device))
     gen = StyleGANGenerator(
-        config.ch, enable_blur=bool(config.enable_blur), rgbd=True,
+        config.ch, enable_blur=bool(config.enable_blur), rgbd=rgbd,
         rotate_conv_input=bool(config.rotate_conv_input), use_occupancy_net=bool(config.use_occupancy_net_loss),
         initial_depth=initial_depth, compute_dtype=_compute_dtype(config), generator=generator,
     )
@@ -173,6 +181,7 @@ class Trainer:
 
         init_gen = torch.Generator().manual_seed(seed)
         self.arch = config.generator_architecture
+        self.rgb = bool(config.rgb)
         gen, make_hidden = setup_generator(config, init_gen, self.device.type == "cuda")
         dis = setup_discriminator(config, init_gen)
         gen.to(self.device).requires_grad_(False)
@@ -183,7 +192,7 @@ class Trainer:
         b1, b2 = config.adam_beta1, config.adam_beta2
         ema = copy_params(gen) if config.keep_smoothed_gen else None
         if self.arch == "stylegan":
-            opt_gen = make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2)
+            opt_gen = make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2, rgbd=not self.rgb)
         else:
             # dcgan: the whole generator; deepvoxels: the mapping is also
             # inside the whole-generator optimizer (train_rgbd.py:335-343)
@@ -217,7 +226,7 @@ class Trainer:
             batch_size=self.batch_size,
             # the 2D step's generator (the DeepVoxels step reads none)
             architecture="dcgan" if self.arch == "dcgan" else "stylegan",
-            use_rotate=iteration > (c.start_rotation or 0),
+            use_rotate=not self.rgb and iteration > (c.start_rotation or 0),
             occlusion_aware=iteration >= (c.start_occlusion_aware or 0),
             rotate_feature=bool(c.rotate_feature),
             use_occupancy=bool(c.use_occupancy_net_loss),
@@ -243,6 +252,8 @@ class Trainer:
                     self.make_hidden, self.prior, spec, focal_loss_gamma=gamma if gamma else 0.0,
                     background_generator=bool(self.config.background_generator),
                 )
+            elif self.rgb:
+                step = make_rgb_train_step(self.make_hidden, spec)
             else:
                 step = make_rgbd_train_step(self.make_hidden, self.prior, spec)
             self._step_cache[spec] = step
@@ -268,6 +279,7 @@ class Trainer:
         grid of 8 columns (``train_rgbd.py:70-71``). A DeepVoxels generator
         with a background generator raises ``NotImplementedError``: the JAX
         package's eval forward passes it no background latents and fails.
+        An RGB generator takes ``theta9=None``.
         """
         if getattr(self.state.gen, "background_generator", False):
             raise NotImplementedError(BACKGROUND_EVAL_FAULT)
@@ -278,7 +290,8 @@ class Trainer:
             gen = self.state.ema_gen
             for mine, live in zip(gen.buffers(), self.state.gen.buffers()):
                 mine.copy_(live)
-        z, theta9 = torch.as_tensor(z, device=self.device), torch.as_tensor(theta9, device=self.device)
+        z = torch.as_tensor(z, device=self.device)
+        theta9 = None if theta9 is None else torch.as_tensor(theta9, device=self.device)
         if self.arch != "deepvoxels":
             return gen(z, stage_floor, float(alpha), theta9, train=False)
         if z2 is None:
@@ -339,6 +352,25 @@ class Trainer:
     def save(self, tag: str) -> None:
         ckpt.save_snapshot(self.out, self.state, self.rng.get_state(), tag, self.config)
 
+    @contextlib.contextmanager
+    def _profiled(self) -> Iterator[None]:
+        """Record the block with ``torch.profiler`` (the CPU, and the card's
+        kernels on a CUDA device) and write its Chrome trace to
+        ``[out]/profile/trace.json``. A profiler that records nothing (no
+        event; on the card, no kernel) raises instead of leaving the run
+        unprofiled."""
+        from torch.profiler import ProfilerActivity, profile
+
+        on_cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
+        with profile(activities=activities) as prof:
+            yield
+        events = prof.profiler.kineto_results.events()  # the raw records: prof.events() builds a tree, slowly
+        if not events or (on_cuda and not any(e.device_type() == torch.autograd.DeviceType.CUDA for e in events)):
+            raise RuntimeError("nvprof: torch.profiler recorded no " + ("CUDA kernel" if on_cuda else "event"))
+        os.makedirs(os.path.join(self.out, "profile"), exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.out, "profile", "trace.json"))
+
     # ------------------------------------------------------------------
 
     def run(
@@ -348,6 +380,9 @@ class Trainer:
     ) -> Dict[str, Any]:
         c = self.config
         total = iterations if iterations is not None else c.iteration
+        profiling = bool(c.nvprof or c.enable_cuda_profiling)
+        if profiling:
+            total = PROFILED_ITERATIONS
         snapshot_interval = c.snapshot_interval or 10000
         display_interval = c.display_interval or 100
         preview_interval = c.evaluation_sample_interval or 500
@@ -359,33 +394,34 @@ class Trainer:
 
         start_time = time.time()
         last_log: Dict[str, Any] = {}
-        while self.state.iteration < total:
-            st = self.stage(self.state.iteration)
-            floor, alpha = decompose_stage(st, self.max_stage)
-            spec = self._spec_for(self.state.iteration, floor)
-            x = torch.from_numpy(self.iterator.next()).to(self.device)
-            _, metrics = self._step(spec)(self.state, x, alpha, self.rng)
-            it = self.state.iteration
-            # the NaN guard fires every iteration (reference asserts,
-            # updater.py:336,439); this is the step's one host sync
-            if bool(metrics["nan"]):
-                raise FloatingPointError(f"NaN loss at iteration {it} (stage {st:.3f})")
-            if it % display_interval == 0 or it == total:
-                row = {
-                    "iteration": it,
-                    "elapsed_time": time.time() - start_time,
-                    "batch_size": float(self.batch_size),
-                }
-                row.update({k: float(v) for k, v in metrics.items() if k != "nan"})
-                last_log = row
-                if log_cb:
-                    log_cb(row)
-                os.makedirs(self.out, exist_ok=True)
-                with open(os.path.join(self.out, "log.jsonl"), "a") as f:
-                    f.write(json.dumps(row) + "\n")
-            if it % preview_interval == 0:
-                self._preview(previews, it)
-            if it % snapshot_interval == 0:
-                self.save(str(it))
+        with self._profiled() if profiling else contextlib.nullcontext():
+            while self.state.iteration < total:
+                st = self.stage(self.state.iteration)
+                floor, alpha = decompose_stage(st, self.max_stage)
+                spec = self._spec_for(self.state.iteration, floor)
+                x = torch.from_numpy(self.iterator.next()).to(self.device)
+                _, metrics = self._step(spec)(self.state, x, alpha, self.rng)
+                it = self.state.iteration
+                # the NaN guard fires every iteration (reference asserts,
+                # updater.py:336,439); this is the step's one host sync
+                if bool(metrics["nan"]):
+                    raise FloatingPointError(f"NaN loss at iteration {it} (stage {st:.3f})")
+                if it % display_interval == 0 or it == total:
+                    row = {
+                        "iteration": it,
+                        "elapsed_time": time.time() - start_time,
+                        "batch_size": float(self.batch_size),
+                    }
+                    row.update({k: float(v) for k, v in metrics.items() if k != "nan"})
+                    last_log = row
+                    if log_cb:
+                        log_cb(row)
+                    os.makedirs(self.out, exist_ok=True)
+                    with open(os.path.join(self.out, "log.jsonl"), "a") as f:
+                        f.write(json.dumps(row) + "\n")
+                if it % preview_interval == 0:
+                    self._preview(previews, it)
+                if it % snapshot_interval == 0:
+                    self.save(str(it))
         self.save("latest")
         return last_log

@@ -49,6 +49,11 @@ def test_sources_found():
         "rgbd_gan_tpu_torch/eval/preview.py", "rgbd_gan_tpu_torch/eval/inception.py",
         "rgbd_gan_tpu_torch/eval/fid.py", "rgbd_gan_tpu_torch/cli/evaluate.py",
     } <= found
+    # and the legacy step, the image helpers and the 3D-structure and FID-trend tools
+    assert {
+        "rgbd_gan_tpu_torch/train/legacy.py", "rgbd_gan_tpu_torch/utils/image_processing.py",
+        "rgbd_gan_tpu_torch/tools/validate_3d_structure.py", "rgbd_gan_tpu_torch/tools/fid_trend.py",
+    } <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -241,11 +241,15 @@ def test_step_refuses_unported_options(option):
 
 
 def test_unported_options_raise():
-    """``use_mpi`` and ``rgb`` are not ported and raise; SN now builds, and
-    ``step_window`` is accepted (the window runs as plain steps)."""
-    for option in ("use_mpi", "rgb"):
-        with pytest.raises(NotImplementedError, match=option):
-            Trainer(Config(dict(CFG, **{option: True})), dataset=synthetic_dataset(4, 32), device="cpu")
+    """``use_mpi`` is not ported and raises; ``rgb`` and ``nvprof`` build a
+    Trainer (held to the JAX package in ``tests/test_torch_rgb_step.py`` and
+    ``tests/test_torch_rgb_trainer.py``), SN builds, and ``step_window`` is
+    accepted (the window runs as plain steps)."""
+    with pytest.raises(NotImplementedError, match="use_mpi"):
+        Trainer(Config(dict(CFG, use_mpi=True)), dataset=synthetic_dataset(4, 32), device="cpu")
+    rgb = Trainer(Config(dict(CFG, rgb=True)), dataset=synthetic_dataset(4, 32), device="cpu")
+    assert rgb.rgb and "gen.l1.weight" not in dict(rgb.state.gen.named_parameters())
+    assert Trainer(Config(dict(CFG, nvprof=True)), dataset=synthetic_dataset(4, 32), device="cpu").config.nvprof
     assert "block0.l2.u" in Trainer(Config(dict(CFG, sn=True)), dataset=synthetic_dataset(4, 32),
                                     device="cpu").state.dis.state_dict()
     trainer = Trainer(Config(dict(CFG, step_window=4)), dataset=synthetic_dataset(4, 32), device="cpu")
