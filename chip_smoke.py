@@ -136,9 +136,32 @@ Phases, each printing one line; any failure exits non-zero:
    style mixing at 0.9, 3 steps; and `structured_spheres_dcgan.yml` with
    `rgb: True` and `nvprof: True`, which must stop at 10 of its 20
    iterations and write a trace with CUDA kernels under `out/profile/`.
+20. data parallelism (`use_mpi: True`) with two ranks on the one card, each
+   a spawned process given its device: NCCL's answer to two ranks on one
+   device is printed; a one-rank NCCL group runs the port's averaging
+   functions on CUDA tensors; then, on the backend the probe leaves (gloo,
+   reducing the card's tensors through the host, where NCCL refuses):
+   phase 5's step on two ranks (4 images and its own draws a rank) on the
+   card against the same two-rank step on the CPU, the ranks bit-identical;
+   `ffhq_stylegan_occlusion.yml` (ch 256, global batch 32, 16 a rank, 128
+   px, R1, 5 iterations) and `deepvoxels_shapenet_car.yml` with
+   `rendernet_projection` (2 ranks x 6, 3 iterations) through the CLI's run
+   function, each rank's ms/step, peak memory and K1/K2/K5 launches printed
+   (K1 and K2 once a step on each rank; the windowed lift twice forward and
+   once backward), only rank 0 writing `log.jsonl` and the snapshot, the
+   parameters' digest the same on both ranks, and the RenderNet BatchNorm
+   statistics the same on both ranks and the mean of the ranks' own. Two
+   ranks on one card check correctness; they are not a figure of the speed
+   of data parallelism.
+21. the Inception converter chain: a synthetic `classify_image_graph_def.pb`
+   (the real topology at 299 px, random constants) through
+   `rgbd_gan_tpu_torch.tools.convert_inception` to the npz, loaded with
+   `load_params` on the card; the GraphDef executor on the card against it
+   (`pool_3` features and logits, TF's average pools swapped into the
+   model) and against itself on the CPU. No kernel launches.
 
 Each path (the benchmark of phase 4, the runs of phases 7-9, 11, 12, 14,
-15, 17 and 19, and the three evaluations) is driven with every kernel's launch
+15, 17, 19 and 20, and the three evaluations) is driven with every kernel's launch
 count set to 0 just before it and read just after; the script's wall time
 is printed before the kernels line. The line before the last is a JSON object describing
 each kernel (its time beside its bound, the plain version's time and, where
@@ -342,6 +365,24 @@ DCGAN_SHAPENET_CAR_RGB = dict(DCGAN_SHAPENET_CAR, rgb=True)
 STRUCTURED_SPHERES_DCGAN_NVPROF = dict(STRUCTURED_SPHERES_DCGAN, rgb=True, nvprof=True)
 NVPROF_ITERATIONS = 10
 LEGACY_STEPS, LEGACY_MIXING_RATE = 3, 0.9
+# phase 20: two ranks on the one card, each a spawned process; the
+# full-width paths with use_mpi: True (StyleGAN: global batch 32, 16 a rank,
+# 5 iterations; DeepVoxels with RenderNet: 2 ranks x 6, 3 iterations: the
+# yml's batch of 10 gives 5 a rank, and the step draws its latents in pairs,
+# which an odd batch breaks, in either package); the
+# seconds a group of ranks may take (the NCCL probe's); the DeepVoxels
+# BatchNorm statistics against the mean of the ranks' own (float32 sums of
+# two, halved: one rounding)
+DP_WORLD = 2
+FFHQ_STYLEGAN_DP = dict(FFHQ_STYLEGAN_OCCLUSION, use_mpi=True)
+DEEPVOXELS_RENDERNET_DP = dict(DEEPVOXELS_RENDERNET, use_mpi=True, batchsize=12)
+DP_TIMEOUT, DP_PROBE_TIMEOUT = 400, 90
+DP_STATS_RTOL = 1e-6
+# phase 21: the GraphDef executor against the converted model (TF's pools
+# swapped in) and against itself on the CPU, over the largest pool_3
+# feature or logit: float32 convolutions summed in other orders over 94
+# layers (read on the CPU at 75 px: under 1e-5)
+CONVERTER_REL = 1e-4
 
 
 def _reset_launches() -> None:
@@ -1839,6 +1880,391 @@ def _legacy_path(torch):
     return counts["bilinear"], counts["trilinear"]
 
 
+# ---------------------------------------------------------------------------
+# phase 20: data parallelism, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _digest(modules) -> int:
+    """A 63-bit hash of the modules' parameters and buffers, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in modules:
+        for t in m.state_dict().values():
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "little") >> 1
+
+
+def _dp_nccl_probe(torch, rank, world, work, args):
+    """Two NCCL ranks on one card: the all-reduce's answer, or its refusal."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device="cuda:0")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return {"ok": True, "sum": x.tolist()}
+    except Exception as e:  # the refusal is the finding
+        return {"ok": False, "answer": f"{type(e).__name__}: {e}"[:800]}
+
+
+def _dp_nccl_one_rank(torch, rank, world, work, args):
+    """A one-rank NCCL group: the port's averaging functions on CUDA tensors."""
+    from rgbd_gan_tpu_torch.parallel.mesh import all_mean, mean_metrics, world_size
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(1000, device="cuda", generator=g), torch.randn(3, 5, device="cuda", generator=g)]
+    means = all_mean(xs)
+    metrics = mean_metrics({"a": torch.tensor(1.5, device="cuda")}, torch.tensor(True, device="cuda"))
+    torch.cuda.synchronize()
+    return {"world": world_size(), "max_abs_diff": max(float((a - b).abs().max()) for a, b in zip(means, xs)),
+            "metric": float(metrics["a"]), "nan": bool(metrics["nan"])}
+
+
+def _dp_parity(torch, rank, world, work, args):
+    """One StyleGAN step at phase 5's width on ``args['device']``, rank r on
+    its shard of 4 images with its own draws, made on the CPU."""
+    from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
+    from rgbd_gan_tpu_torch.models.generators import stylegan_make_hidden
+    from rgbd_gan_tpu_torch.parallel.mesh import shard_batch
+    from rgbd_gan_tpu_torch.train.trainer import Trainer
+
+    config = _small_config()
+    config.batchsize, config.use_mpi = 4 * world, True
+    data = synthetic_dataset(4 * world, 32)
+    trainer = Trainer(config, dataset=data, seed=0, device=args["device"])  # the same weights on every rank
+    g = torch.Generator().manual_seed(100 + rank)
+    z = torch.cat([stylegan_make_hidden(g, 2, config.ch)] * 2)
+    thetas6 = trainer.prior.sample(g, 4, "cpu")
+    x = torch.from_numpy(shard_batch(data, rank, world).transpose(0, 2, 3, 1).copy()).to(args["device"])
+    spec = trainer._spec_for(0, 6)
+    _reset_launches()
+    _, metrics = trainer._step(spec)(trainer.state, x, 0.0, z=z, thetas6=thetas6)
+    if args["device"] == "cuda":
+        torch.cuda.synchronize()
+    return {"losses": {k: float(v) for k, v in metrics.items() if "loss" in k}, "nan": bool(metrics["nan"]),
+            "local_batch": spec.batch_size, "digest": _digest([trainer.state.gen, trainer.state.dis]),
+            "launches": _read_launches()}
+
+
+def _dp_path(torch, rank, world, work, args):
+    """``args['values']`` (with ``use_mpi: True``) through the CLI's run
+    function on the card, each rank with an ``out`` of its own, the launch
+    counts zeroed just before and read just after; the parameters' digest
+    reduced across the ranks (max and min). On DeepVoxels, each call of the
+    step's BatchNorm averaging records this rank's statistics before it and
+    the result."""
+    import torch.distributed as dist
+
+    from rgbd_gan_tpu_torch.cli import train as cli
+    from rgbd_gan_tpu_torch.core.config import Config
+    from rgbd_gan_tpu_torch.train import steps_deepvoxels
+
+    out = os.path.join(work, f"out_r{rank}")
+    config = Config(dict(args["values"], dataset_path=args["data"], image_path="unused/*.png", out=out))
+    config.gpu = 0
+    stamps, stats = [], {}
+    mean_batch_stats = steps_deepvoxels.mean_batch_stats
+
+    def recorded(gen):
+        own = {k: v.clone() for k, v in gen.state_dict().items() if k.endswith((".mean", ".var"))}
+        mean_batch_stats(gen)
+        stats.update(own={k: v.tolist() for k, v in own.items()},
+                     mean={k: v.tolist() for k, v in gen.state_dict().items() if k in own})
+
+    def on_row(row):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), row))
+
+    steps_deepvoxels.mean_batch_stats = recorded
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        trainer = cli.run(config, on_row=on_row, device="cuda")
+        torch.cuda.synchronize()
+        counts = _read_launches()
+    finally:
+        steps_deepvoxels.mean_batch_stats = mean_batch_stats
+    digest = _digest([trainer.state.gen, trainer.state.dis])
+    spread = torch.tensor([digest, -digest], dtype=torch.int64, device="cuda")
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    step_ms = [1e3 * (stamps[i][0] - stamps[i - 1][0]) for i in range(1, len(stamps))]
+    return {"step_ms": step_ms, "median_ms": statistics.median(step_ms), "rows": [r for _, r in stamps],
+            "iteration": trainer.state.iteration, "local_batch": trainer.local_batch,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
+            "digest_max": int(spread[0]), "digest_min": -int(spread[1]),
+            "files": sorted(os.listdir(out)) if os.path.isdir(out) else None, "batch_stats": stats}
+
+
+DP_LEGS = {"nccl_probe": _dp_nccl_probe, "nccl_one_rank": _dp_nccl_one_rank, "parity": _dp_parity,
+           "path": _dp_path}
+
+
+def _dp_rank(rank: int, world: int, backend: str, init_file: str, legs, work: str) -> None:
+    """One rank of phase 20, in a process of its own: joins a ``world``-rank
+    ``backend`` group through a file store, runs ``legs`` ((name, kind,
+    args) in order) and writes their results to ``work/rank{rank}.json``
+    (with the traceback under ``error`` if one raised)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)  # every rank on the one card, not LOCAL_RANK's
+        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank, world_size=world)
+        for name, kind, args in legs:
+            results[name] = DP_LEGS[kind](torch, rank, world, work, args)
+        if all(kind != "nccl_probe" for _, kind, _ in legs):
+            dist.barrier()  # no rank tears the group down while another still runs: that can abort
+    except Exception:
+        results["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_ranks(work: str, world: int, backend: str, legs, timeout: float):
+    """Run :func:`_dp_rank` in ``world`` spawned processes and return each
+    rank's results; a rank that does not end within ``timeout`` seconds is
+    killed and reads ``{"error": "timed out"}``."""
+    import multiprocessing
+
+    os.makedirs(work)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, world, backend, os.path.join(work, "store"), legs, work))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    results = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+        path = os.path.join(work, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path) else {"error": f"timed out or died ({p.exitcode})"})
+    return results
+
+
+def _dp_failed(phase: str, results) -> None:
+    for r, res in enumerate(results):
+        if "error" in res:
+            raise AssertionError(f"{phase}: rank {r} failed:\n{res['error']}")
+
+
+def phase_data_parallel(torch, device: str = "cuda", stylegan=None, deepvoxels=None, image_px=(128, 64)):
+    """Phase 20: data parallelism with two ranks on the one card, each a
+    spawned process given its device (not torchrun's LOCAL_RANK: the card has
+    one index). First NCCL's answer to two ranks on one device; a one-rank
+    NCCL group running the averaging functions on CUDA tensors; then, with
+    the backend the probe leaves (gloo, which reduces CUDA tensors through
+    the host, where NCCL refuses), (a) phase 5's step on two ranks on the
+    card against the same two-rank step on the CPU under gloo, (b) the
+    full-width StyleGAN path and (c) the RenderNet DeepVoxels path through
+    the CLI's run function. ``device="cpu"`` with small ``stylegan`` and
+    ``deepvoxels`` values rehearses the legs on the CPU. Returns the
+    bilinear launch counts of (b) and (c), and the lift counts of (c), each
+    summed over the ranks."""
+    from rgbd_gan_tpu_torch.data.dataset import synthetic_dataset
+
+    stylegan = stylegan or FFHQ_STYLEGAN_DP
+    deepvoxels = deepvoxels or DEEPVOXELS_RENDERNET_DP
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        backend = "gloo"
+        if device == "cuda":
+            # the earlier phases' cached blocks go back to the card, which the ranks share with this process
+            import gc
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("dp_parent_memory", allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}",
+                reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}")
+            probe = _spawn_ranks(os.path.join(work, "probe"), DP_WORLD, "nccl",
+                                 [("nccl_probe", "nccl_probe", {})], DP_PROBE_TIMEOUT)
+            answers = [res.get("nccl_probe", {"ok": False, "answer": res.get("error", "")[-800:]}) for res in probe]
+            refused = not all(a["ok"] for a in answers)
+            log("dp_nccl_two_ranks_one_card", refused=refused, answers=json.dumps(answers))
+            backend = "gloo" if refused else "nccl"
+            (one,) = _spawn_ranks(os.path.join(work, "nccl1"), 1, "nccl", [("nccl", "nccl_one_rank", {})], 300)
+            _dp_failed("dp_nccl_one_rank", [one])
+            log("dp_nccl_one_rank", **{k: json.dumps(v) for k, v in one["nccl"].items()})
+            if one["nccl"]["max_abs_diff"] != 0 or one["nccl"]["world"] != 1 or not one["nccl"]["nan"]:
+                raise AssertionError(f"dp_nccl_one_rank: {one}")
+        for name, px in zip(("data_stylegan", "data_deepvoxels"), image_px):
+            os.makedirs(os.path.join(work, name))
+            np.save(os.path.join(work, name, "images.npy"), synthetic_dataset(64, px))
+        legs = [("parity_card", "parity", {"device": device}),
+                ("stylegan", "path", {"values": stylegan, "data": os.path.join(work, "data_stylegan")}),
+                ("deepvoxels", "path", {"values": deepvoxels, "data": os.path.join(work, "data_deepvoxels")})]
+        cpu_leg = [("parity_cpu", "parity", {"device": "cpu"})]
+        if backend == "gloo":  # one gloo group reduces the CPU's tensors and the card's
+            ranks = _spawn_ranks(os.path.join(work, "ranks"), DP_WORLD, backend, cpu_leg + legs, DP_TIMEOUT)
+            cpu = ranks
+        else:
+            ranks = _spawn_ranks(os.path.join(work, "ranks"), DP_WORLD, backend, legs, DP_TIMEOUT)
+            cpu = _spawn_ranks(os.path.join(work, "cpu"), DP_WORLD, "gloo", cpu_leg, DP_TIMEOUT)
+        _dp_failed("data_parallel", ranks + cpu)
+        return _dp_check(backend, ranks, cpu, stylegan, deepvoxels, on_card=device == "cuda")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _dp_check(backend, ranks, cpu, stylegan, deepvoxels, on_card: bool):
+    """Phase 20's assertions and lines (off the card, in a rehearsal, no
+    kernel launches)."""
+    one_step = BILINEAR_ONE_STEP if on_card else BILINEAR_NONE
+    # (a) parity: the card's two-rank step against the CPU's
+    card = [r["parity_card"] for r in ranks]
+    host = [r["parity_cpu"] for r in cpu]
+    worst = _hold("dp_step_parity", {"cpu": [host[0]["losses"]], "cuda": [card[0]["losses"]]}, STEP_ATOL)
+    log("dp_step_parity", backend=backend, local_batch=card[0]["local_batch"], cpu=json.dumps(host[0]["losses"]),
+        cuda=json.dumps(card[0]["losses"]), max_abs_diff=f"{worst:.3e}", atol=STEP_ATOL, rtol=STEP_RTOL,
+        digests=json.dumps([c["digest"] for c in card]), launches=json.dumps([c["launches"]["bilinear"] for c in card]))
+    for name, pair in (("card", card), ("cpu", host)):
+        if len({c["digest"] for c in pair}) != 1 or any(c["losses"] != pair[0]["losses"] or c["nan"] for c in pair):
+            raise AssertionError(f"dp_step_parity: the {name} ranks differ: {pair}")
+    if any(c["launches"]["bilinear"] != one_step for c in card):
+        raise AssertionError(f"dp_step_parity: bilinear launches {[c['launches'] for c in card]}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    bilinear, lift = {}, {}
+    for path, values, per_step, lift_per_step in (
+            ("stylegan", stylegan, one_step, {}),
+            ("deepvoxels", deepvoxels, one_step, {"fwd_win_vec4": 2, "bwd_win_vec4": 1} if on_card else {})):
+        legs = [r[path] for r in ranks]
+        n = values["iteration"]
+        log(f"dp_main_path_{path}", card=repr(smi), backend=backend, ranks=DP_WORLD, global_batch=values["batchsize"],
+            local_batch=legs[0]["local_batch"],
+            **{f"rank{r}_median_ms_per_step_2_{n}": f"{leg['median_ms']:.3f}" for r, leg in enumerate(legs)},
+            **{f"rank{r}_peak_mem_gib": f"{leg['peak_mem_gib']:.3f}" for r, leg in enumerate(legs)},
+            step_ms=json.dumps([[round(t, 3) for t in leg["step_ms"]] for leg in legs]),
+            launches=json.dumps([leg["launches"] for leg in legs]), digests=json.dumps([legs[0]["digest_max"],
+                                                                                      legs[0]["digest_min"]]),
+            files=json.dumps([leg["files"] for leg in legs]), last=json.dumps(legs[0]["rows"][-1]))
+        rows = legs[0]["rows"]
+        if any(leg["iteration"] != n or len(leg["rows"]) != n for leg in legs) or not all(
+                math.isfinite(row[k]) for row in rows for k in row if k.startswith(("gen/", "dis/"))):
+            raise AssertionError(f"dp {path}: expected {n} iterations with finite losses")
+        if rows[-1]["batch_size"] != values["batchsize"] or legs[0]["local_batch"] != values["batchsize"] // DP_WORLD:
+            raise AssertionError(f"dp {path}: batch {rows[-1]['batch_size']}, local {legs[0]['local_batch']}")
+        metrics = [[{k: v for k, v in row.items() if k != "elapsed_time"} for row in leg["rows"]] for leg in legs]
+        if any(m != metrics[0] for m in metrics[1:]):
+            raise AssertionError(f"dp {path}: the ranks report different metrics")
+        for leg in legs:
+            if leg["launches"]["bilinear"] != {k: v * n for k, v in per_step.items()}:
+                raise AssertionError(f"dp {path}: bilinear launches {leg['launches']['bilinear']}")
+            if leg["launches"]["trilinear"] != {**LIFT_NONE, **{k: v * n for k, v in lift_per_step.items()}}:
+                raise AssertionError(f"dp {path}: lift launches {leg['launches']['trilinear']}")
+            if any(leg["launches"]["conv"].values()):
+                raise AssertionError(f"dp {path}: K6 is wired into no model, yet launched {leg['launches']['conv']}")
+        # only rank 0 writes: its out has the log and the snapshot, rank 1's does not exist
+        if legs[1]["files"] is not None or "log.jsonl" not in legs[0]["files"] \
+                or "Generator_latest.npz" not in legs[0]["files"]:
+            raise AssertionError(f"dp {path}: files {[leg['files'] for leg in legs]}")
+        if legs[0]["digest_max"] != legs[0]["digest_min"]:
+            raise AssertionError(f"dp {path}: the ranks' parameters differ")
+        bilinear[path] = {k: sum(leg["launches"]["bilinear"][k] for leg in legs) for k in BILINEAR_NONE}
+        lift[path] = {k: sum(leg["launches"]["trilinear"][k] for leg in legs) for k in LIFT_NONE}
+    # (c) the RenderNet BatchNorm statistics: the same on both ranks, the mean of the ranks' own
+    stats = [r["deepvoxels"]["batch_stats"] for r in ranks]
+    worst = 0.0
+    for k in stats[0]["mean"]:
+        own = [np.asarray(s["own"][k], np.float32) for s in stats]
+        mean = np.asarray(stats[0]["mean"][k], np.float32)
+        if any(s["mean"][k] != stats[0]["mean"][k] for s in stats) or np.allclose(own[0], own[1]):
+            raise AssertionError(f"dp deepvoxels: {k} differs across ranks, or the ranks' own statistics agree")
+        worst = max(worst, float(np.abs(mean - (own[0] + own[1]) / 2).max() / max(np.abs(mean).max(), 1e-30)))
+    log("dp_deepvoxels_batch_stats", stats=len(stats[0]["mean"]), max_rel_from_mean_of_ranks=f"{worst:.3e}",
+        rtol=DP_STATS_RTOL)
+    if not stats[0]["mean"] or worst > DP_STATS_RTOL:
+        raise AssertionError(f"dp deepvoxels: statistics {worst} from the mean of the ranks' own")
+    return bilinear, lift
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the Inception converter chain on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_converter(torch, device: str = "cuda", size: int = 299):
+    """Phase 21: a synthetic ``classify_image_graph_def.pb`` (the real
+    topology and shapes, random constants) through the port's tool to the
+    npz, loaded with ``load_params`` on ``device``; the port's GraphDef
+    executor on ``device`` against the loaded model with TF's
+    count-exclude-padding average pool swapped in (``pool_3`` features and
+    the logits, within ``CONVERTER_REL`` of their largest), against itself
+    on the CPU, and (printed) against the model's own padded pools. No
+    kernel of the port may launch."""
+    import torch.nn.functional as F
+
+    from rgbd_gan_tpu_torch.eval import graphdef_exec, inception
+    from rgbd_gan_tpu_torch.eval import tf_graphdef as gd
+    from rgbd_gan_tpu_torch.tools import convert_inception
+    from rgbd_gan_tpu_torch.tools.inception_graph import synthetic_consts, wired_graphdef
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_inception_", dir=os.path.dirname(os.path.abspath(__file__)))
+    pool = inception._avg_pool_3x3
+    try:
+        pb, npz = os.path.join(work, convert_inception.PB_NAME), os.path.join(work, "inception.npz")
+        with open(pb, "wb") as f:
+            f.write(wired_graphdef(synthetic_consts(np.random.RandomState(21)), size))
+        _reset_launches()
+        t0 = time.perf_counter()
+        convert_inception.main([pb, "--out", npz, "--device", device])
+        convert_s = time.perf_counter() - t0
+        model = inception.load_params(npz, device=device)
+        graph = gd.GraphDef(open(pb, "rb").read())
+        x = np.random.RandomState(5).uniform(0, 255, size=(2, size, size, 3)).astype(np.float32)
+        feeds = {"ExpandDims:0": x}
+        executor = graphdef_exec.GraphExecutor(graph, device)
+        feat = executor.run("pool_3:0", feeds).reshape(2, -1)
+        logits = torch.cat([executor.run("softmax/logits:0", {"ExpandDims:0": x[i:i + 1]}) for i in range(2)])
+        feat_cpu = graphdef_exec.GraphExecutor(graph, "cpu").run("pool_3:0", feeds).reshape(2, -1)
+        with torch.no_grad():
+            xt = torch.from_numpy(x).to(device)
+            own = model(xt, get_feature=True)
+            inception._avg_pool_3x3 = lambda h: F.avg_pool2d(h, 3, 1, 1, count_include_pad=False)
+            tf_feat = model(xt, get_feature=True)
+            tf_logits = model.logit(tf_feat)
+        ms = None
+        if device == "cuda":  # the whole graph, host dispatch included
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                executor.run("pool_3:0", feeds)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 3
+        counts = _read_launches()
+
+        def rel(a, b):
+            return float((a.cpu() - b.cpu()).abs().max()) / float(b.abs().max())
+
+        fields = dict(size=size, convert_s=f"{convert_s:.2f}", feature_rel=f"{rel(feat, tf_feat):.3e}",
+                      logit_rel=f"{rel(logits, tf_logits):.3e}", card_vs_cpu_rel=f"{rel(feat, feat_cpu):.3e}",
+                      vs_model_own_pools_rel=f"{rel(feat, own):.3e}", tol=CONVERTER_REL,
+                      executor_ms_batch_2=f"{ms:.3f}" if ms is not None else "not measured",
+                      launches=json.dumps(counts))
+        log("converter", **fields)
+        if max(rel(feat, tf_feat), rel(logits, tf_logits), rel(feat, feat_cpu)) > CONVERTER_REL:
+            raise AssertionError(f"converter: executor and converted model apart: {fields}")
+        if any(v for kind in counts.values() for v in kind.values()):
+            raise AssertionError(f"converter: launched the port's kernels {counts}")
+    finally:
+        inception._avg_pool_3x3 = pool
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1876,6 +2302,10 @@ def main() -> int:
     rgb_paths, rgb_lift = phase_rgb_paths(torch, has_yaml)
     by_path.update(rgb_paths)
     lift_by_path.update(rgb_lift)
+    dp_paths, dp_lift = phase_data_parallel(torch)
+    by_path.update({f"{path}_dp_{DP_WORLD}_ranks": counts for path, counts in dp_paths.items()})
+    lift_by_path.update({f"{path}_dp_{DP_WORLD}_ranks": counts for path, counts in dp_lift.items()})
+    phase_converter(torch)
     log("wall", seconds=f"{time.perf_counter() - started:.1f}")
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):

@@ -13,8 +13,10 @@ card by default; without a card it exits with an error unless
 config's ``out`` directory, written by the port or by the JAX package.
 FID needs the real data's statistics: ``--stat_file``, built on first use
 from the configured dataset. Without converted Inception weights
-(``--inception_weights``) the scores come from a randomly initialised
-network: consistent between runs, not comparable with the literature.
+(``--inception_weights``, the npz that
+``python -m rgbd_gan_tpu_torch.tools.convert_inception`` writes) the scores
+come from a randomly initialised network: consistent between runs, not
+comparable with the literature.
 """
 
 from __future__ import annotations

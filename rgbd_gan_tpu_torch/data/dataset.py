@@ -49,17 +49,21 @@ class ImageDataset:
     """Shuffled wrap-around batch iterator over the cached images.
 
     Yields NHWC uint8 batches (the train step normalises them on the
-    device). Sharding for data parallelism waits for the parallel port.
+    device). With ``num_shards > 1`` each rank takes the disjoint strided
+    shard ``images[shard_index::num_shards]`` and shuffles it with its own
+    stream, seeded ``seed + shard_index`` (the JAX package's per-process
+    input pipeline for data parallelism).
     """
 
-    def __init__(self, images: np.ndarray, batch_size: int, seed: int = 0):
+    def __init__(self, images: np.ndarray, batch_size: int, seed: int = 0, shard_index: int = 0,
+                 num_shards: int = 1):
         if images.ndim != 4:
             raise ValueError(f"expected (N, 3, H, W) or (N, H, W, 3), got {images.shape}")
         if images.shape[1] == 3 and images.shape[-1] != 3:
             images = images.transpose(0, 2, 3, 1)  # NCHW cache -> NHWC
-        self.images = images
+        self.images = images[shard_index::num_shards]
         self.batch_size = batch_size
-        self._rng = np.random.RandomState(seed)
+        self._rng = np.random.RandomState(seed + shard_index)
         self._perm = self._rng.permutation(len(self.images))
         self._pos = 0
 

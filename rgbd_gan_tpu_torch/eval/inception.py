@@ -16,23 +16,25 @@ images, as the JAX model does, and permutes once. Module and parameter
 names follow the flax tree (``mixed_4.b7x7_1.conv.weight`` is
 ``params/mixed_4/b7x7_1/conv/kernel``, the BN statistics
 ``batch_stats/.../bn/{mean,var}``), so :func:`load_params` reads the
-flat-key npz that the JAX package's ``convert_tf_checkpoint`` writes.
-Without one it warns and keeps random He-normal weights: the scores are
-then consistent between runs of the port but not comparable with the
-literature. Nothing is downloaded.
+flat-key npz that :func:`convert_tf_checkpoint` (or the JAX package's)
+writes from ``classify_image_graph_def.pb``. Without one it warns and keeps
+random He-normal weights: the scores are then consistent between runs of
+the port but not comparable with the literature. Nothing is downloaded.
 """
 
 from __future__ import annotations
 
 import math
 import warnings
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..bridge import load_jax_variables
+import numpy as np
+
+from ..bridge import load_jax_variables, variables_to_jax
 from ..train.checkpoint import load_tree
 
 FEATURE_DIM = 2048
@@ -258,18 +260,141 @@ class InceptionV3(nn.Module):
 
 def load_params(path: Optional[str], device: torch.device | str = "cpu", seed: int = 0) -> InceptionV3:
     """The model with the converted weights of ``path`` (the flat-key npz of
-    the JAX package's ``convert_tf_checkpoint``: ``params/...`` and
+    :func:`convert_tf_checkpoint`, or the JAX package's: ``params/...`` and
     ``batch_stats/...``), strictly; without a path, random weights drawn
     from ``seed``, with a loud warning. In eval mode, without gradients,
     on ``device``."""
-    model = InceptionV3(torch.Generator().manual_seed(seed))
     if path is None:
         warnings.warn(
             "No Inception weights supplied: using random init. FID/IS values will be "
             "internally consistent but not comparable to the literature. Convert "
-            "inception-2015-12-05's classify_image_graph_def.pb with the JAX package's "
-            "tools/convert_inception.py and pass the npz it writes."
+            "inception-2015-12-05's classify_image_graph_def.pb with "
+            "python -m rgbd_gan_tpu_torch.tools.convert_inception and pass the npz it writes."
         )
+        model = InceptionV3(torch.Generator().manual_seed(seed))
     else:
+        model = _undrawn()  # the strict load writes every leaf
         load_jax_variables(model, load_tree(path))
     return model.eval().requires_grad_(False).to(device)
+
+
+# ---------------------------------------------------------------------------
+# TF-checkpoint conversion (no tensorflow needed: see eval/tf_graphdef.py)
+# ---------------------------------------------------------------------------
+
+# TF scope (inside a mixed block) -> the branch module's name, per block
+# shape, from the reference converter's tower walk
+# (source/inception/download.py:70-180)
+_MAP_A = [  # mixed / mixed_1 / mixed_2 (35x35)
+    ("conv", "b1x1"),
+    ("tower/conv", "b5x5_1"), ("tower/conv_1", "b5x5_2"),
+    ("tower_1/conv", "b3x3dbl_1"), ("tower_1/conv_1", "b3x3dbl_2"), ("tower_1/conv_2", "b3x3dbl_3"),
+    ("tower_2/conv", "bpool"),
+]
+_MAP_B = [  # mixed_3 (35 -> 17 reduction)
+    ("conv", "b3x3"),
+    ("tower/conv", "b3x3dbl_1"), ("tower/conv_1", "b3x3dbl_2"), ("tower/conv_2", "b3x3dbl_3"),
+]
+_MAP_C = [  # mixed_4..mixed_7 (17x17)
+    ("conv", "b1x1"),
+    ("tower/conv", "b7x7_1"), ("tower/conv_1", "b7x7_2"), ("tower/conv_2", "b7x7_3"),
+    ("tower_1/conv", "b7x7dbl_1"), ("tower_1/conv_1", "b7x7dbl_2"), ("tower_1/conv_2", "b7x7dbl_3"),
+    ("tower_1/conv_3", "b7x7dbl_4"), ("tower_1/conv_4", "b7x7dbl_5"),
+    ("tower_2/conv", "bpool"),
+]
+_MAP_D = [  # mixed_8 (17 -> 8 reduction)
+    ("tower/conv", "b3x3_1"), ("tower/conv_1", "b3x3_2"),
+    ("tower_1/conv", "b7x7x3_1"), ("tower_1/conv_1", "b7x7x3_2"), ("tower_1/conv_2", "b7x7x3_3"),
+    ("tower_1/conv_3", "b7x7x3_4"),
+]
+_MAP_E = [  # mixed_9 / mixed_10 (8x8)
+    ("conv", "b1x1"),
+    ("tower/conv", "b3x3_1"), ("tower/mixed/conv", "b3x3_2a"), ("tower/mixed/conv_1", "b3x3_2b"),
+    ("tower_1/conv", "b3x3dbl_1"), ("tower_1/conv_1", "b3x3dbl_2"),
+    ("tower_1/mixed/conv", "b3x3dbl_3a"), ("tower_1/mixed/conv_1", "b3x3dbl_3b"),
+    ("tower_2/conv", "bpool"),
+]
+_BLOCK_MAPS = {
+    "mixed": _MAP_A, "mixed_1": _MAP_A, "mixed_2": _MAP_A,
+    "mixed_3": _MAP_B,
+    "mixed_4": _MAP_C, "mixed_5": _MAP_C, "mixed_6": _MAP_C, "mixed_7": _MAP_C,
+    "mixed_8": _MAP_D,
+    "mixed_9": _MAP_E, "mixed_10": _MAP_E,
+}
+_STEM = ["conv", "conv_1", "conv_2", "conv_3", "conv_4"]
+
+
+def iter_conv_mappings():
+    """Yield every (tf_conv_scope, module_path) conv+BN pair.
+
+    ``tf_conv_scope`` owns the consts ``{scope}/conv2d_params`` and
+    ``{scope}/batchnorm/{gamma,beta,moving_mean,moving_variance}``;
+    ``module_path`` is the ``/``-joined :class:`ConvBN` path in
+    :class:`InceptionV3` (e.g. ``mixed_4/b7x7_1``).
+    """
+    for name in _STEM:
+        yield name, name
+    for block, pairs in _BLOCK_MAPS.items():
+        for tf_scope, branch in pairs:
+            yield f"{block}/{tf_scope}", f"{block}/{branch}"
+
+
+def _undrawn() -> InceptionV3:
+    """The model on the CPU with its leaves allocated but not drawn (random
+    init takes seconds); for a strict load, or for the shapes alone."""
+    with torch.device("meta"):
+        model = InceptionV3()
+    return model.to_empty(device="cpu")
+
+
+def template_shapes() -> Dict[str, Tuple[int, ...]]:
+    """The flat keys that :func:`load_params` reads, with their shapes in the
+    flat layout (conv kernels HWIO, the logit kernel (in, out))."""
+    return {k: v.shape for k, v in variables_to_jax(_undrawn(), "batch_stats").items()}
+
+
+def convert_tf_checkpoint(pb_path: str, out_npz: str) -> dict:
+    """Convert the TF ``inception-2015-12-05`` GraphDef to the flat-key npz
+    that :func:`load_params` reads, and return the dict it wrote.
+
+    The twin of the JAX package's ``convert_tf_checkpoint`` (the same keys
+    and values) and a TF-free twin of the reference converter
+    (``source/inception/download.py:35-246``): the Const tensors are read
+    straight out of the protobuf wire format. TF conv kernels are HWIO, the
+    flat keys' layout, and the 2048x1008 logit MatMul weight is (in, out).
+    Completeness and every shape are checked against :class:`InceptionV3`.
+    """
+    from .tf_graphdef import GraphDef
+
+    with open(pb_path, "rb") as f:
+        graph = GraphDef(f.read())
+
+    flat = {}
+    for tf_scope, module_path in iter_conv_mappings():
+        flat[f"params/{module_path}/conv/kernel"] = graph.const_tensor(f"{tf_scope}/conv2d_params")
+        bn = f"{tf_scope}/batchnorm"
+        flat[f"params/{module_path}/bn/scale"] = graph.const_tensor(f"{bn}/gamma")
+        flat[f"params/{module_path}/bn/bias"] = graph.const_tensor(f"{bn}/beta")
+        flat[f"batch_stats/{module_path}/bn/mean"] = graph.const_tensor(f"{bn}/moving_mean")
+        flat[f"batch_stats/{module_path}/bn/var"] = graph.const_tensor(f"{bn}/moving_variance")
+        if graph.has_attr(bn, "variance_epsilon"):  # a synthetic graph may omit the op node
+            eps = graph.float_attr(bn, "variance_epsilon")
+            if abs(eps - BN_EPS) > 1e-9:
+                warnings.warn(f"{bn}: variance_epsilon={eps} differs from the model's "
+                              f"hardcoded {BN_EPS}; converted scores will drift")
+
+    # the logit head: the MatMul's weight operand and the bias const (download.py:172-180)
+    w = np.asarray(graph.const_tensor(graph.node_input("softmax/logits/MatMul", 1)))
+    flat["params/logit/kernel"] = w.reshape(FEATURE_DIM, NUM_LOGITS)
+    flat["params/logit/bias"] = np.asarray(graph.const_tensor("softmax/biases")).reshape(NUM_LOGITS)
+
+    template = template_shapes()
+    missing = sorted(set(template) - set(flat))
+    if missing:
+        raise ValueError(f"conversion incomplete; missing keys: {missing[:10]}...")
+    for k, v in flat.items():
+        if k in template and tuple(np.shape(v)) != template[k]:
+            raise ValueError(f"shape mismatch for {k}: graph {np.shape(v)} vs model {template[k]}")
+
+    np.savez(out_npz, **flat)
+    return flat

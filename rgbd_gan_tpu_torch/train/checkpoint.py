@@ -12,8 +12,10 @@ and, when it is spectrally normalised, its power-iteration vectors under
 ``sn/.../u``. The trainer
 snapshot stores the optimizer moments under the optax state paths
 (``opt_gen/1/0/mu/...``), the iteration, and the state of the port's
-``torch.Generator`` under ``rng_state`` (the JAX package stores a PRNG key).
-A DCGAN state has no mapping optimizer: like the JAX package's ``None``
+``torch.Generator`` under ``rng_state`` (the JAX package stores a PRNG key);
+a run of several ranks keeps rank 0's stream there and every rank's under
+``rank_rng_state/{rank}``, keys that the JAX package's non-strict loader
+ignores. A DCGAN state has no mapping optimizer: like the JAX package's ``None``
 leaf, it writes and reads no ``opt_map/...`` key.
 """
 
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +40,8 @@ from ..bridge import (
 )
 from .optim import ClippedAdam
 from .state import TrainState
+
+RANK_RNG_STATE = "rank_rng_state"  # every rank's stream, under /{rank}
 
 
 def save_tree(path: str, flat: Dict[str, np.ndarray]) -> None:
@@ -76,8 +80,13 @@ def _opt_from_flat(opt: Optional[ClippedAdam], flat: Dict[str, np.ndarray], pref
     opt.load_state_dict(state)
 
 
-def save_snapshot(out_dir: str, state: TrainState, rng_state: torch.Tensor, tag: str, config) -> None:
-    """Write the per-model and trainer artifacts for ``tag`` (an iteration or 'latest')."""
+def save_snapshot(
+    out_dir: str, state: TrainState, rng_state: torch.Tensor, tag: str, config,
+    rank_rng_states: Sequence[torch.Tensor] = (),
+) -> None:
+    """Write the per-model and trainer artifacts for ``tag`` (an iteration or
+    'latest'); ``rank_rng_states`` are every rank's streams, in rank order,
+    in a run of several ranks."""
     os.makedirs(out_dir, exist_ok=True)
     save_tree(os.path.join(out_dir, f"Generator_{tag}.npz"), module_to_jax(state.gen))
     if config.generator_architecture == "deepvoxels":
@@ -95,14 +104,17 @@ def save_snapshot(out_dir: str, state: TrainState, rng_state: torch.Tensor, tag:
         **_opt_to_flat(state.opt_dis, "opt_dis"),
         "iteration": np.asarray(state.iteration, dtype=np.int32),
         "rng_state": rng_state.cpu().numpy(),
+        **{f"{RANK_RNG_STATE}/{r}": t.cpu().numpy() for r, t in enumerate(rank_rng_states)},
     }
     save_tree(os.path.join(out_dir, f"snapshot_iter_{tag}.npz"), trainer)
 
 
-def load_snapshot(out_dir: str, state: TrainState, tag: str, config) -> Optional[torch.Tensor]:
-    """Load the artifacts for ``tag`` into ``state`` in place; returns the saved
-    ``torch.Generator`` state, or None when the snapshot came from the JAX
-    package."""
+def load_snapshot(out_dir: str, state: TrainState, tag: str, config, rank: int = 0) -> Optional[torch.Tensor]:
+    """Load the artifacts for ``tag`` into ``state`` in place; returns the
+    saved ``torch.Generator`` state of ``rank`` (its own stream when the
+    snapshot holds one, else rank 0's ``rng_state``), or None when the
+    snapshot came from the JAX package or holds no stream for a rank above
+    0."""
     load_jax_variables(state.gen, load_tree(os.path.join(out_dir, f"Generator_{tag}.npz")))
     load_jax_variables(state.dis, load_tree(os.path.join(out_dir, f"Discriminator_{tag}.npz")), "sn")
     ema_path = os.path.join(out_dir, f"SmoothedGenerator_{tag}.npz")
@@ -113,7 +125,8 @@ def load_snapshot(out_dir: str, state: TrainState, tag: str, config) -> Optional
     _opt_from_flat(state.opt_gen, trainer, "opt_gen")
     _opt_from_flat(state.opt_dis, trainer, "opt_dis")
     state.iteration = int(trainer["iteration"])
-    return torch.from_numpy(trainer["rng_state"]) if "rng_state" in trainer else None
+    keys = [f"{RANK_RNG_STATE}/{rank}"] + (["rng_state"] if rank == 0 else [])
+    return next((torch.from_numpy(trainer[k]) for k in keys if k in trainer), None)
 
 
 def scan_auto_resume(auto_resume_dir: str, names: List[str]) -> Optional[str]:

@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from .losses import dis_adv_loss, dis_out_and_r1, downsize_real, gen_adv_loss
+from ..parallel.mesh import world_size
 from .optim import get_lr_scale_factor
 from .state import TrainState
 from .steps import StepSpec, _finish, _to_unit_range, _update_dis, _update_gen
@@ -51,14 +52,16 @@ def calc_distance(est_theta: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
 def make_legacy_train_step(
     make_hidden: Callable[[Optional[torch.Generator], int], torch.Tensor],
     spec: StepSpec,
-    total_devices: int = 1,
+    total_devices: Optional[int] = None,
 ):
     """Legacy RGB StyleGAN step with style mixing (``updater.py:115-211``).
 
     With probability ``spec.style_mixing_rate`` the fine half of each
     latent (the half that drives ``w2``) comes from a second latent; both
-    losses are multiplied by ``get_lr_scale_factor(total_devices, stage)``.
-    R1 whenever ``spec.lambda_gp > 0``. Returns ``step(state, x_real_full,
+    losses are multiplied by ``get_lr_scale_factor(total_devices, stage)``;
+    ``total_devices`` defaults to the world size under data parallelism
+    (``spec.axis_name``, which also averages the gradients and the metrics
+    over the ranks) and to 1 without. R1 whenever ``spec.lambda_gp > 0``. Returns ``step(state, x_real_full,
     alpha, generator=None, *, z=None, z2=None, mix=None, z_d=None,
     z2_d=None, mix_d=None) -> (state, metrics)``: the G phase's latent, its
     second latent and its mixing decision, and the D phase's, replace the
@@ -66,9 +69,9 @@ def make_legacy_train_step(
     alone and unscaled, ``gen/loss_adv`` the scaled G loss, as in the JAX
     step.
     """
-    if spec.axis_name is not None:
-        raise NotImplementedError("not ported yet: axis_name (data parallelism)")
     stage = spec.stage_floor
+    if total_devices is None:
+        total_devices = 1 if spec.axis_name is None else world_size()
     lr_scale = float(get_lr_scale_factor(total_devices, stage))
 
     def sample_z(generator, device, z, z2, mix) -> torch.Tensor:
@@ -128,7 +131,7 @@ def make_legacy_train_step(
             loss_adv = loss = dis_adv_loss(y_fake, dis(x_real, stage, alpha))
         metrics["dis/loss_adv"] = loss_adv.detach()
         loss_dis = loss * lr_scale
-        _update_dis(state, loss_dis)
-        return _finish(state, metrics, loss_gen, loss_dis, stage, alpha, x_real.shape[1], device)
+        _update_dis(state, spec, loss_dis)
+        return _finish(state, spec, metrics, loss_gen, loss_dis, stage, alpha, x_real.shape[1], device)
 
     return step

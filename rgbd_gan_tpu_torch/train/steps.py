@@ -34,6 +34,12 @@ on the reals, as the JAX step threads its ``sn`` collection.
 Under ``mixed16`` the reals reach D's R1 forward already cast to D's compute
 dtype, so the input gradient is rounded to bf16 as in the JAX step.
 
+With ``spec.axis_name`` set (data parallelism, :mod:`..parallel.mesh`) the
+step is the per-rank step of the JAX package's sharded one: it draws from
+the rank's own stream, averages G's and D's gradients over the ranks before
+the clip and Adam, averages the metrics and sets the NaN flag on every rank
+if any rank saw one.
+
 The RGB step (``rgb: True``) has the same skeleton without camera
 conditioning and without any 3D loss: the generator renders RGB from the
 latent alone, yet the latents are still drawn in pairs
@@ -52,6 +58,7 @@ import torch
 
 from ..geometry.camera import camera_matrices, theta_to_9dof
 from ..geometry.warp import occupancy_net_loss, rotate_consistency_loss
+from ..parallel.mesh import mean_grads, mean_metrics
 from .ema import soft_copy_params
 from .losses import _avg_pool_by, dis_adv_loss, dis_out_and_r1, downsize_real, gen_adv_loss, l2_loss
 from .state import TrainState
@@ -82,7 +89,7 @@ class StepSpec:
     sn: bool = False
     # the legacy step's chance of taking the fine half of z from a second latent
     style_mixing_rate: float = 0.0
-    # data parallelism: refused, not ported yet
+    # data parallelism: the mesh axis to average over (parallel.mesh.DATA_AXIS), or None
     axis_name: Optional[str] = None
 
 
@@ -112,17 +119,24 @@ def _feature_rotate_loss(feat: torch.Tensor, x_real: torch.Tensor, mats: torch.T
     return loss
 
 
+def _grads(spec: StepSpec, loss: torch.Tensor, params):
+    """d loss / d params (None where the loss does not reach), averaged over
+    the ranks under ``spec.axis_name``."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return grads if spec.axis_name is None else mean_grads(grads, params)
+
+
 def _update_gen(state: TrainState, spec: StepSpec, loss_gen: torch.Tensor) -> None:
     """Adam on the generator: for StyleGAN two clipping domains, the mapping
     (alpha/100) and the synthesis network; for DCGAN one over the whole
     generator. Then the EMA soft copy."""
     if spec.architecture == "stylegan":
         n_map = len(state.opt_map.params)
-        grads = torch.autograd.grad(loss_gen, state.opt_map.params + state.opt_gen.params, allow_unused=True)
+        grads = _grads(spec, loss_gen, state.opt_map.params + state.opt_gen.params)
         state.opt_map.step(grads[:n_map])
         state.opt_gen.step(grads[n_map:])
     else:
-        state.opt_gen.step(torch.autograd.grad(loss_gen, state.opt_gen.params, allow_unused=True))
+        state.opt_gen.step(_grads(spec, loss_gen, state.opt_gen.params))
     state.gen.requires_grad_(False)
     if spec.keep_smoothed_gen and state.ema_gen is not None:
         soft_copy_params(state.ema_gen, state.gen, 1.0 - spec.smoothing)
@@ -151,16 +165,21 @@ def _dis_adv_and_penalty(
     return dis_adv_loss(y_fake, dis(x_real, stage, alpha)), feat_fake
 
 
-def _update_dis(state: TrainState, loss_dis: torch.Tensor) -> None:
-    dis_params = list(state.dis.parameters())
-    state.opt_dis.step(torch.autograd.grad(loss_dis, dis_params, allow_unused=True))
+def _update_dis(state: TrainState, spec: StepSpec, loss_dis: torch.Tensor) -> None:
+    state.opt_dis.step(_grads(spec, loss_dis, list(state.dis.parameters())))
     state.dis.requires_grad_(False)
 
 
-def _finish(state: TrainState, metrics, loss_gen, loss_dis, stage: int, alpha, image_size: int, device):
+def _finish(state: TrainState, spec: StepSpec, metrics, loss_gen, loss_dis, stage, alpha, image_size, device):
+    """The stage and image size into the metrics, and the NaN flag; under
+    ``spec.axis_name`` the metrics averaged and the flag any over the ranks."""
     metrics["stage"] = torch.tensor(float(stage) + float(alpha), device=device)
     metrics["image_size"] = torch.tensor(float(image_size), device=device)
-    metrics["nan"] = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
+    nan = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
+    if spec.axis_name is None:
+        metrics["nan"] = nan
+    else:
+        metrics = mean_metrics(metrics, nan)
     state.iteration += 1
     return state, metrics
 
@@ -171,9 +190,7 @@ def make_rgbd_train_step(
     spec: StepSpec,
 ):
     """Build the StyleGAN or DCGAN RGBD train step for ``spec`` (exact bilinear
-    sampling, R1 every ``spec.r1_interval`` steps); raises
-    ``NotImplementedError`` for data parallelism (``axis_name``), which is
-    not ported.
+    sampling, R1 every ``spec.r1_interval`` steps).
 
     ``make_hidden(generator, n)`` draws n latents on the state's device.
     Returns ``step(state, x_real_full, alpha, generator=None, *, z=None,
@@ -183,8 +200,6 @@ def make_rgbd_train_step(
     ``0.05 * N(0, 1)``) replace the step's own draws when given. Metrics are
     0-dim tensors on the device.
     """
-    if spec.axis_name is not None:
-        raise NotImplementedError("not ported yet: axis_name (data parallelism)")
     stage = spec.stage_floor
     half = spec.batch_size // 2
     rotate_feature = spec.use_rotate and spec.rotate_feature
@@ -263,8 +278,8 @@ def make_rgbd_train_step(
                 g_norm = torch.sqrt(torch.sum(g_fake**2, dim=tuple(range(1, g_fake.dim()))) + 1e-24)
                 loss_dis = loss_dis + spec.lambda_gp * l2_loss(g_norm, 0.0)
         metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
-        _update_dis(state, loss_dis)
-        return _finish(state, metrics, loss_gen, loss_dis, stage, alpha, image_size, device)
+        _update_dis(state, spec, loss_dis)
+        return _finish(state, spec, metrics, loss_gen, loss_dis, stage, alpha, image_size, device)
 
     return step
 
@@ -272,12 +287,9 @@ def make_rgbd_train_step(
 def make_rgb_train_step(make_hidden: Callable[[Optional[torch.Generator], int], torch.Tensor], spec: StepSpec):
     """Build the StyleGAN or DCGAN RGB train step for ``spec`` (reference
     ``RGBUpdater``): no camera and no 3D loss, paired latents, R1 every
-    ``spec.r1_interval`` steps or SN; raises ``NotImplementedError`` for
-    ``axis_name``. Returns ``step(state, x_real_full, alpha, generator=None,
+    ``spec.r1_interval`` steps or SN. Returns ``step(state, x_real_full, alpha, generator=None,
     *, z=None) -> (state, metrics)``, the RGBD step's interface without the
     poses; ``z`` replaces the step's own latents when given."""
-    if spec.axis_name is not None:
-        raise NotImplementedError("not ported yet: axis_name (data parallelism)")
     stage = spec.stage_floor
     half = spec.batch_size // 2
 
@@ -306,7 +318,7 @@ def make_rgb_train_step(make_hidden: Callable[[Optional[torch.Generator], int], 
         # ---------------- discriminator phase ----------------
         loss_dis, _ = _dis_adv_and_penalty(state, spec, x_fake[..., :3].detach(), x_real, stage, alpha, metrics)
         metrics["dis/loss_adv"] = loss_dis.detach()
-        _update_dis(state, loss_dis)
-        return _finish(state, metrics, loss_gen, loss_dis, stage, alpha, x_real.shape[1], device)
+        _update_dis(state, spec, loss_dis)
+        return _finish(state, spec, metrics, loss_gen, loss_dis, stage, alpha, x_real.shape[1], device)
 
     return step

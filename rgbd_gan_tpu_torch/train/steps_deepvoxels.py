@@ -26,6 +26,10 @@ What differs from the RGBD step, all as in the reference:
 - a spectrally normalised D (``sn``) advances its power-iteration vectors
   once per forward (G phase; D phase on the fakes and on the reals) and
   takes no R1 penalty
+- under data parallelism (``spec.axis_name``) the BatchNorm running
+  statistics are averaged over the ranks after the step, besides the
+  gradients and the metrics (the forwards normalise with each rank's own
+  batch: not a synchronised BatchNorm)
 
 The step mutates the state in place.
 """
@@ -42,7 +46,8 @@ from ..models.deepvoxels import PROJECTION_INTRINSIC
 from .ema import soft_copy_params
 from .losses import dis_adv_loss, dis_out_and_r1, gen_adv_loss
 from .state import TrainState
-from .steps import StepSpec, _in_dtype_of, _to_unit_range
+from ..parallel.mesh import mean_batch_stats
+from .steps import StepSpec, _finish, _grads, _in_dtype_of, _to_unit_range
 
 DEEPVOXELS_STAGE = 8  # floor of the pinned 8.5
 IMG_SIZE = 64
@@ -66,8 +71,7 @@ def make_deepvoxels_train_step(
     background_generator: bool = False,
 ):
     """Build the DeepVoxels train step for ``spec`` (exact bilinear sampling,
-    R1 every step unless ``spec.sn``); raises ``NotImplementedError`` for
-    data parallelism (``axis_name``), which is not ported.
+    R1 every step unless ``spec.sn``).
 
     ``make_hidden(generator, n)`` draws n latents on the state's device.
     Returns ``step(state, x_real_full, alpha, generator=None, *, z=None,
@@ -78,8 +82,6 @@ def make_deepvoxels_train_step(
     ``z3``, ``z4`` and ``z3_d``, ``z4_d``: the background generator's
     unpaired latents of each phase, drawn only with ``background_generator``).
     """
-    if spec.axis_name is not None:
-        raise NotImplementedError("not ported yet: axis_name (data parallelism)")
     if spec.r1_interval > 1:
         raise ValueError("r1_interval > 1 is not supported by the deepvoxels step")
     half = spec.batch_size // 2
@@ -157,7 +159,7 @@ def make_deepvoxels_train_step(
         # the map optimizer first, then the whole-generator optimizer over the
         # same gradients (the mapping is in both: train_rgbd.py:335-343)
         map_params = list(gen.mapping.parameters())
-        grads = torch.autograd.grad(loss_gen, map_params + state.opt_gen.params, allow_unused=True)
+        grads = _grads(spec, loss_gen, map_params + state.opt_gen.params)
         state.opt_map.step(grads[: len(map_params)])
         state.opt_gen.step(grads[len(map_params):])
         gen.requires_grad_(False)
@@ -178,13 +180,10 @@ def make_deepvoxels_train_step(
         else:
             loss_dis = dis_adv_loss(y_fake, dis(x_real, stage, alpha))
         metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
-        state.opt_dis.step(torch.autograd.grad(loss_dis, state.opt_dis.params, allow_unused=True))
+        state.opt_dis.step(_grads(spec, loss_dis, state.opt_dis.params))
         dis.requires_grad_(False)
-
-        metrics["stage"] = torch.tensor(8.5, device=device)
-        metrics["image_size"] = torch.tensor(float(IMG_SIZE), device=device)
-        metrics["nan"] = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
-        state.iteration += 1
-        return state, metrics
+        if spec.axis_name is not None:
+            mean_batch_stats(gen)
+        return _finish(state, spec, metrics, loss_gen, loss_dis, stage, 0.5, IMG_SIZE, device)
 
     return step

@@ -2,7 +2,7 @@
 StyleGAN and DCGAN RGB paths: builds models, optimizers and the step from a
 config and runs the iteration loop.
 
-Port of :mod:`rgbd_gan_tpu.train.trainer` without its mesh and step windows
+Port of :mod:`rgbd_gan_tpu.train.trainer` without its step windows
 (reference ``train_rgbd.py:261-474``): model and optimizer
 wiring (mapping at alpha/100 in its own clipping domain; for StyleGAN
 ``l1``/``l2`` at alpha/100 inside the synthesis domain, for DeepVoxels one
@@ -32,10 +32,20 @@ DeepVoxels step takes precedence, as in the JAX trainer), and its previews
 have no pose sweep. ``nvprof: True`` (or ``enable_cuda_profiling``) caps the
 run at 10 iterations and records them with ``torch.profiler`` into
 ``[out]/profile/``, the twin of the JAX trainer's ``jax.profiler`` trace.
-Refused: ``use_mpi`` (not ported yet), lazy R1 on the DeepVoxels step (as in
-the JAX package), ``occlusion_type: occlusion_unet`` (the JAX package cannot
-build it) and the eval-mode forward of a background generator (the JAX
-package's raises).
+``use_mpi: True`` trains data-parallel when the process group (see
+:func:`..parallel.mesh.maybe_initialize_distributed`) holds more than one
+rank: each rank takes ``batchsize / world`` images (an even number: the
+steps draw their latents in pairs) from its own shard of the dataset and
+draws from its own stream, and the steps average the
+gradients, the metrics and the BatchNorm statistics over the ranks. Every
+rank starts from rank 0's weights, reads a snapshot on resume and runs the
+EMA; only rank 0 writes ``log.jsonl``, the previews, the snapshots and the
+``nvprof`` trace. With one rank it is the plain path, unchanged.
+
+Refused: lazy R1 on the DeepVoxels step (as in the JAX package),
+``occlusion_type: occlusion_unet`` (the JAX package cannot build it), the
+eval-mode forward of a background generator (the JAX package's raises),
+``bigan`` and ``optical_flow`` (the reference's raise too).
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from ..geometry.prior import CameraParamPrior
 from ..models.discriminator import Discriminator
 from ..models.deepvoxels import OCCLUSION_UNET_FAULT, build_deepvoxels_generator
 from ..models.generators import DCGANGenerator, StyleGANGenerator, dcgan_make_hidden, stylegan_make_hidden
+from ..parallel.mesh import DATA_AXIS, all_gather_bytes, is_master, make_mesh, rank, rank_seed, replicate, world_size
 from . import checkpoint as ckpt
 from .ema import copy_params
 from .optim import make_optimizer, make_stylegan_gen_optimizer
@@ -99,14 +110,8 @@ def _check_config(config) -> None:
         )
     if deepvoxels and not config.rendernet_projection and config.occlusion_type == "occlusion_unet":
         raise NotImplementedError(OCCLUSION_UNET_FAULT)
-    unported = {
-        f"generator_architecture {config.generator_architecture}":
-            config.generator_architecture not in ARCHITECTURES,
-        "use_mpi": bool(config.use_mpi),
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if config.generator_architecture not in ARCHITECTURES:
+        raise NotImplementedError(f"not ported yet: generator_architecture {config.generator_architecture}")
     if config.bigan:
         raise NotImplementedError("bigan is not supported (the reference asserts False on it too)")
     if config.optical_flow:
@@ -155,7 +160,10 @@ class Trainer:
     Weights are drawn on the CPU from ``seed`` and then moved to ``device``,
     so the same seed gives the same initial weights on every device. The
     device is the card unless the caller asks for the CPU; without a card a
-    ``"cuda"`` device raises.
+    ``"cuda"`` device raises, and so does the index of a card that is not
+    there. Under data parallelism rank r's stream of draws is seeded from
+    ``(seed, r)`` (:func:`..parallel.mesh.rank_seed`); with one rank from
+    ``seed``.
     """
 
     def __init__(
@@ -168,6 +176,8 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
+        if self.device.type == "cuda" and (self.device.index or 0) >= torch.cuda.device_count():
+            raise RuntimeError(f"Trainer: no {self.device}; this machine has {torch.cuda.device_count()} card(s)")
         _check_config(config)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -177,7 +187,17 @@ class Trainer:
         self.stage_interval = parse_stage_interval(config.stage_interval)
         self.max_stage = config.max_stage
         self.prior = CameraParamPrior(config)
-        self.batch_size = config.batchsize
+        self.batch_size = config.batchsize  # global: over every rank
+        self.world, self.rank = world_size(), rank()
+        self.use_mesh = bool(config.use_mpi) and self.world > 1
+        self.local_batch = self.batch_size  # per rank
+        if self.use_mesh:
+            if self.batch_size % (2 * self.world):
+                # the steps draw their latents in pairs: an odd batch a rank breaks them
+                raise ValueError(f"batchsize {self.batch_size} does not split into an even batch for each of "
+                                 f"{self.world} ranks")
+            self.local_batch = self.batch_size // self.world
+        self.mesh = make_mesh(self.device.type) if self.use_mesh else None
 
         init_gen = torch.Generator().manual_seed(seed)
         self.arch = config.generator_architecture
@@ -206,11 +226,15 @@ class Trainer:
             ema_gen=ema,
         )
         # the train step's draws (latents and poses) come from this stream
-        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.rng = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, self.rank, self.world) if self.use_mesh else seed)
+        if self.use_mesh:
+            replicate(self._modules())
 
         if dataset is None:
             dataset = prepare_dataset(config)
-        self.iterator = ImageDataset(dataset, self.batch_size, seed=seed)
+        shard, shards = (self.rank, self.world) if self.use_mesh else (0, 1)
+        self.iterator = ImageDataset(dataset, self.local_batch, seed=seed, shard_index=shard, num_shards=shards)
         self._step_cache: Dict[StepSpec, Callable] = {}
         self._preview_warned = False
         self.out = config.out or "out"
@@ -223,7 +247,7 @@ class Trainer:
             stage_floor = DEEPVOXELS_STAGE
         return StepSpec(
             stage_floor=stage_floor,
-            batch_size=self.batch_size,
+            batch_size=self.local_batch,
             # the 2D step's generator (the DeepVoxels step reads none)
             architecture="dcgan" if self.arch == "dcgan" else "stylegan",
             use_rotate=not self.rgb and iteration > (c.start_rotation or 0),
@@ -242,6 +266,7 @@ class Trainer:
             gather_mode=str(c.gather_mode) if c.gather_mode else "xla",
             max_stage=self.max_stage,
             r1_interval=int(c.r1_interval) if c.r1_interval else 1,
+            axis_name=DATA_AXIS if self.use_mesh else None,
         )
 
     def _step(self, spec: StepSpec) -> Callable:
@@ -333,8 +358,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    def _modules(self):
+        return self.state.gen, self.state.dis, self.state.ema_gen
+
     def resume(self) -> bool:
-        """Explicit or auto resume (``train_rgbd.py:406-459``)."""
+        """Explicit or auto resume (``train_rgbd.py:406-459``): every rank
+        reads the snapshot and takes back its own stream."""
         c = self.config
         tag, where = None, self.out
         if c.get_model_from_interation:
@@ -344,13 +373,19 @@ class Trainer:
             tag = ckpt.scan_auto_resume(where, ckpt.model_names(c))
         if tag is None:
             return False
-        rng_state = ckpt.load_snapshot(where, self.state, tag, c)
+        rng_state = ckpt.load_snapshot(where, self.state, tag, c, rank=self.rank if self.use_mesh else 0)
         if rng_state is not None:
             self.rng.set_state(rng_state)
+        if self.use_mesh:
+            replicate(self._modules())
         return True
 
     def save(self, tag: str) -> None:
-        ckpt.save_snapshot(self.out, self.state, self.rng.get_state(), tag, self.config)
+        """Write the snapshot from rank 0, with every rank's stream under data
+        parallelism (each rank must call it)."""
+        streams = all_gather_bytes(self.rng.get_state(), self.device) if self.use_mesh else []
+        if is_master():
+            ckpt.save_snapshot(self.out, self.state, self.rng.get_state(), tag, self.config, streams)
 
     @contextlib.contextmanager
     def _profiled(self) -> Iterator[None]:
@@ -394,7 +429,7 @@ class Trainer:
 
         start_time = time.time()
         last_log: Dict[str, Any] = {}
-        with self._profiled() if profiling else contextlib.nullcontext():
+        with self._profiled() if profiling and is_master() else contextlib.nullcontext():
             while self.state.iteration < total:
                 st = self.stage(self.state.iteration)
                 floor, alpha = decompose_stage(st, self.max_stage)
@@ -416,10 +451,11 @@ class Trainer:
                     last_log = row
                     if log_cb:
                         log_cb(row)
-                    os.makedirs(self.out, exist_ok=True)
-                    with open(os.path.join(self.out, "log.jsonl"), "a") as f:
-                        f.write(json.dumps(row) + "\n")
-                if it % preview_interval == 0:
+                    if is_master():
+                        os.makedirs(self.out, exist_ok=True)
+                        with open(os.path.join(self.out, "log.jsonl"), "a") as f:
+                            f.write(json.dumps(row) + "\n")
+                if it % preview_interval == 0 and is_master():
                     self._preview(previews, it)
                 if it % snapshot_interval == 0:
                     self.save(str(it))

@@ -2,8 +2,9 @@
 ``generator_architecture: deepvoxels`` (both occlusion nets, snapshot and
 resume), and the options of the DeepVoxels family that the port refuses:
 each raises ``NotImplementedError`` by its name (``occlusion_unet``, which
-the JAX package cannot build either, and ``use_mpi``); the options that
-were refused before their port now build a Trainer.
+the JAX package cannot build either, and an unknown architecture); the
+options that were refused before their port (``use_mpi`` among them) now
+build a Trainer.
 """
 
 import os
@@ -83,7 +84,8 @@ def test_cli_runs_the_softmax_occlusion_net(scratch):
 
 
 @pytest.mark.parametrize("option,error", [
-    (dict(occlusion_type="occlusion_unet"), NotImplementedError), (dict(use_mpi=True), NotImplementedError),
+    (dict(occlusion_type="occlusion_unet"), NotImplementedError),
+    (dict(generator_architecture="nonesuch"), NotImplementedError),
     (dict(r1_interval=16), ValueError), (dict(occlusion_type="nonesuch"), ValueError),
 ])
 def test_options_that_wait_raise_by_name(option, error):
@@ -96,11 +98,12 @@ def test_options_that_wait_raise_by_name(option, error):
 
 @pytest.mark.parametrize("option", [
     dict(step_window=10), dict(generator_architecture="dcgan"), dict(background_generator=True),
-    dict(rendernet_projection=True), dict(sn=True),
+    dict(rendernet_projection=True), dict(sn=True), dict(use_mpi=True),
 ])
 def test_options_that_were_refused_build(scratch, option):
     """Options that raised before their port (DCGAN and ``step_window``; the
-    background generator, RenderNet and SN): the Trainer builds with the
+    background generator, RenderNet and SN; ``use_mpi``, which with one rank
+    is the plain path): the Trainer builds with the
     modules they add, and a DeepVoxels ``step_window`` run takes plain steps
     (one report row and one NaN check per iteration). One step of each new
     option is held to the JAX package in its own test file."""
@@ -119,6 +122,9 @@ def test_options_that_were_refused_build(scratch, option):
     if "sn" in option:
         assert "block0.l2.u" in dis.state_dict() and trainer._spec_for(1, 8).sn
         return
+    if "use_mpi" in option:
+        assert not trainer.use_mesh and trainer._spec_for(1, 8).axis_name is None
+        return
     rows = []
     trainer.save = lambda tag: None  # the snapshot is held by the test above
     trainer.run(log_cb=rows.append)
@@ -127,12 +133,12 @@ def test_options_that_were_refused_build(scratch, option):
 
 
 def test_step_refuses_unported_options():
-    """Data parallelism is refused by name; the background generator and SN,
-    refused before their port, build a step."""
+    """The background generator, SN and data parallelism (``axis_name``),
+    refused before their port, build a step; lazy R1 is refused, as in the
+    JAX package."""
     spec = StepSpec(stage_floor=8, batch_size=BATCH)
     assert callable(make_deepvoxels_train_step(None, None, spec, background_generator=True))
     assert callable(make_deepvoxels_train_step(None, None, StepSpec(stage_floor=8, batch_size=BATCH, sn=True)))
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        make_deepvoxels_train_step(None, None, StepSpec(stage_floor=8, batch_size=BATCH, axis_name="data"))
+    assert callable(make_deepvoxels_train_step(None, None, StepSpec(stage_floor=8, batch_size=BATCH, axis_name="data")))
     with pytest.raises(ValueError, match="r1_interval"):
         make_deepvoxels_train_step(None, None, StepSpec(stage_floor=8, batch_size=BATCH, r1_interval=4))

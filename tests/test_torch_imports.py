@@ -54,6 +54,13 @@ def test_sources_found():
         "rgbd_gan_tpu_torch/train/legacy.py", "rgbd_gan_tpu_torch/utils/image_processing.py",
         "rgbd_gan_tpu_torch/tools/validate_3d_structure.py", "rgbd_gan_tpu_torch/tools/fid_trend.py",
     } <= found
+    # and data parallelism and the Inception converter chain, with its tool
+    assert {
+        "rgbd_gan_tpu_torch/parallel/__init__.py", "rgbd_gan_tpu_torch/parallel/mesh.py",
+        "rgbd_gan_tpu_torch/eval/tf_graphdef.py", "rgbd_gan_tpu_torch/eval/graphdef_exec.py",
+        "rgbd_gan_tpu_torch/eval/inception_score_compat.py", "rgbd_gan_tpu_torch/tools/convert_inception.py",
+        "rgbd_gan_tpu_torch/tools/inception_graph.py",
+    } <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -229,24 +229,26 @@ def test_cli_runs_snapshots_and_resumes(tmp_path):
     dict(axis_name="data"),
 ])
 def test_step_refuses_unported_options(option):
-    """Data parallelism (``axis_name``) is refused; ``rotate_feature``, the
-    occupancy loss and SN, refused before their port, build a step (held to
-    the JAX package in ``tests/test_torch_rotate_feature_step.py``)."""
+    """Every option refused before its port builds a step: ``rotate_feature``,
+    the occupancy loss and SN (held to the JAX package in
+    ``tests/test_torch_rotate_feature_step.py``), and data parallelism
+    (``axis_name``, held to it in ``tests/test_torch_parallel.py``)."""
     spec = StepSpec(stage_floor=STAGE, batch_size=BATCH, **option)
-    if "axis_name" in option:
-        with pytest.raises(NotImplementedError, match="axis_name"):
-            make_rgbd_train_step(None, None, spec)
-    else:
-        assert callable(make_rgbd_train_step(None, None, spec))
+    assert callable(make_rgbd_train_step(None, None, spec))
 
 
 def test_unported_options_raise():
-    """``use_mpi`` is not ported and raises; ``rgb`` and ``nvprof`` build a
-    Trainer (held to the JAX package in ``tests/test_torch_rgb_step.py`` and
-    ``tests/test_torch_rgb_trainer.py``), SN builds, and ``step_window`` is
-    accepted (the window runs as plain steps)."""
-    with pytest.raises(NotImplementedError, match="use_mpi"):
-        Trainer(Config(dict(CFG, use_mpi=True)), dataset=synthetic_dataset(4, 32), device="cpu")
+    """``bigan`` raises, as in the reference; ``use_mpi`` builds a Trainer
+    that, with one rank, takes the plain path (two ranks are held in
+    ``tests/test_torch_parallel.py`` and ``tests/test_torch_multiprocess.py``);
+    ``rgb`` and ``nvprof`` build a Trainer (held to the JAX package in
+    ``tests/test_torch_rgb_step.py`` and ``tests/test_torch_rgb_trainer.py``),
+    SN builds, and ``step_window`` is accepted (the window runs as plain
+    steps)."""
+    with pytest.raises(NotImplementedError, match="bigan"):
+        Trainer(Config(dict(CFG, bigan=True)), dataset=synthetic_dataset(4, 32), device="cpu")
+    mpi = Trainer(Config(dict(CFG, use_mpi=True)), dataset=synthetic_dataset(4, 32), device="cpu")
+    assert not mpi.use_mesh and mpi._spec_for(1, STAGE).axis_name is None
     rgb = Trainer(Config(dict(CFG, rgb=True)), dataset=synthetic_dataset(4, 32), device="cpu")
     assert rgb.rgb and "gen.l1.weight" not in dict(rgb.state.gen.named_parameters())
     assert Trainer(Config(dict(CFG, nvprof=True)), dataset=synthetic_dataset(4, 32), device="cpu").config.nvprof
