@@ -15,6 +15,9 @@ parameter lists (R1 and the feature penalty are double backwards), so the
 averaging is done by hand, as plain functions, where the JAX step calls
 ``_pmean``; ``DistributedDataParallel``'s reducer hooks serve neither. Each
 collective flattens its tensors into one buffer per dtype and runs once.
+The step's all-reduces (:func:`all_mean`, :func:`mean_metrics`) run in a
+``parallel.all_reduce`` span and count the bytes handed to
+``dist.all_reduce`` as ``parallel.bytes`` (:mod:`..utils.trace`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..nn.layers import BatchNorm
+from ..utils import trace
 
 DATA_AXIS = "data"
 
@@ -114,10 +118,12 @@ def all_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     n = world_size()
 
     def mean(flat):
+        trace.count("parallel.bytes", flat.numel() * flat.element_size())
         dist.all_reduce(flat)
         flat.div_(n)
 
-    return _flat_collective(tensors, mean)
+    with trace.span("parallel.all_reduce"):
+        return _flat_collective(tensors, mean)
 
 
 def mean_grads(grads: Sequence[Optional[torch.Tensor]], params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -134,7 +140,9 @@ def mean_metrics(metrics: Dict[str, torch.Tensor], nan: torch.Tensor) -> Dict[st
     it is true on any (the JAX step's ``_pany``, a ``pmax``)."""
     stacked = torch.stack([v.to(torch.float32) for v in metrics.values()])
     flag = nan.to(torch.float32).reshape(1)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    with trace.span("parallel.all_reduce"):
+        trace.count("parallel.bytes", flag.numel() * flag.element_size())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
     out = dict(zip(metrics, all_mean([stacked])[0].unbind()))
     out["nan"] = flag[0] > 0
     return out

@@ -46,6 +46,11 @@ latent alone, yet the latents are still drawn in pairs
 (``updater.py:525``, the reference's quirk). Its D phase is the RGBD
 step's without the feature 3D-consistency terms.
 
+Each part runs in a span of :mod:`..utils.trace` (on only under a
+profiler): ``step.inputs``, ``step.gen`` (``.forward``, ``.loss3d``,
+``.backward``, ``.adam``), ``step.dis`` (``.forward``, ``.r1``,
+``.backward``, ``.adam``) and ``step.finish``.
+
 The step mutates the state in place.
 """
 
@@ -59,6 +64,7 @@ import torch
 from ..geometry.camera import camera_matrices, theta_to_9dof
 from ..geometry.warp import occupancy_net_loss, rotate_consistency_loss
 from ..parallel.mesh import mean_grads, mean_metrics
+from ..utils import trace
 from .ema import soft_copy_params
 from .losses import _avg_pool_by, dis_adv_loss, dis_out_and_r1, downsize_real, gen_adv_loss, l2_loss
 from .state import TrainState
@@ -119,27 +125,29 @@ def _feature_rotate_loss(feat: torch.Tensor, x_real: torch.Tensor, mats: torch.T
     return loss
 
 
-def _grads(spec: StepSpec, loss: torch.Tensor, params):
+def _grads(spec: StepSpec, loss: torch.Tensor, params, span: str):
     """d loss / d params (None where the loss does not reach), averaged over
-    the ranks under ``spec.axis_name``."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return grads if spec.axis_name is None else mean_grads(grads, params)
+    the ranks under ``spec.axis_name``, in the span ``span``."""
+    with trace.span(span):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return grads if spec.axis_name is None else mean_grads(grads, params)
 
 
 def _update_gen(state: TrainState, spec: StepSpec, loss_gen: torch.Tensor) -> None:
     """Adam on the generator: for StyleGAN two clipping domains, the mapping
     (alpha/100) and the synthesis network; for DCGAN one over the whole
     generator. Then the EMA soft copy."""
-    if spec.architecture == "stylegan":
-        n_map = len(state.opt_map.params)
-        grads = _grads(spec, loss_gen, state.opt_map.params + state.opt_gen.params)
-        state.opt_map.step(grads[:n_map])
+    stylegan = spec.architecture == "stylegan"
+    n_map = len(state.opt_map.params) if stylegan else 0
+    params = (state.opt_map.params if stylegan else []) + state.opt_gen.params
+    grads = _grads(spec, loss_gen, params, "step.gen.backward")
+    with trace.span("step.gen.adam"):
+        if stylegan:
+            state.opt_map.step(grads[:n_map])
         state.opt_gen.step(grads[n_map:])
-    else:
-        state.opt_gen.step(_grads(spec, loss_gen, state.opt_gen.params))
-    state.gen.requires_grad_(False)
-    if spec.keep_smoothed_gen and state.ema_gen is not None:
-        soft_copy_params(state.ema_gen, state.gen, 1.0 - spec.smoothing)
+        state.gen.requires_grad_(False)
+        if spec.keep_smoothed_gen and state.ema_gen is not None:
+            soft_copy_params(state.ema_gen, state.gen, 1.0 - spec.smoothing)
 
 
 def _dis_adv_and_penalty(
@@ -156,7 +164,8 @@ def _dis_adv_and_penalty(
         x_r1 = _in_dtype_of(dis, x_real)
         if state.iteration % spec.r1_interval == 0:
             # one D(x_real) forward feeds both the adversarial term and R1
-            y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_r1)
+            with trace.span("step.dis.r1"):
+                y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), x_r1)
             gp = spec.lambda_gp * spec.r1_interval * gp_raw
         else:
             y_real, gp = dis(x_r1, stage, alpha), torch.zeros((), device=x_real.device)
@@ -166,22 +175,25 @@ def _dis_adv_and_penalty(
 
 
 def _update_dis(state: TrainState, spec: StepSpec, loss_dis: torch.Tensor) -> None:
-    state.opt_dis.step(_grads(spec, loss_dis, list(state.dis.parameters())))
+    grads = _grads(spec, loss_dis, list(state.dis.parameters()), "step.dis.backward")
+    with trace.span("step.dis.adam"):
+        state.opt_dis.step(grads)
     state.dis.requires_grad_(False)
 
 
 def _finish(state: TrainState, spec: StepSpec, metrics, loss_gen, loss_dis, stage, alpha, image_size, device):
     """The stage and image size into the metrics, and the NaN flag; under
     ``spec.axis_name`` the metrics averaged and the flag any over the ranks."""
-    metrics["stage"] = torch.tensor(float(stage) + float(alpha), device=device)
-    metrics["image_size"] = torch.tensor(float(image_size), device=device)
-    nan = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
-    if spec.axis_name is None:
-        metrics["nan"] = nan
-    else:
-        metrics = mean_metrics(metrics, nan)
-    state.iteration += 1
-    return state, metrics
+    with trace.span("step.finish"):
+        metrics["stage"] = torch.tensor(float(stage) + float(alpha), device=device)
+        metrics["image_size"] = torch.tensor(float(image_size), device=device)
+        nan = torch.isnan(loss_gen.detach()) | torch.isnan(loss_dis.detach())
+        if spec.axis_name is None:
+            metrics["nan"] = nan
+        else:
+            metrics = mean_metrics(metrics, nan)
+        state.iteration += 1
+        return state, metrics
 
 
 def make_rgbd_train_step(
@@ -218,67 +230,72 @@ def make_rgbd_train_step(
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         gen, dis = state.gen, state.dis
         device = x_real_full.device
-        if z is None:
-            z = torch.cat([make_hidden(generator, half)] * 2, dim=0)
-        if thetas6 is None:
-            thetas6 = prior.sample(generator, spec.batch_size, device)
-        z, thetas6 = z.to(device), thetas6.to(device)
-        mats = camera_matrices(thetas6)
-        theta9 = theta_to_9dof(thetas6)
-        x_real = downsize_real(_to_unit_range(x_real_full), stage, alpha, spec.max_stage)
+        with trace.span("step.inputs", step=state.iteration):
+            if z is None:
+                z = torch.cat([make_hidden(generator, half)] * 2, dim=0)
+            if thetas6 is None:
+                thetas6 = prior.sample(generator, spec.batch_size, device)
+            z, thetas6 = z.to(device), thetas6.to(device)
+            mats = camera_matrices(thetas6)
+            theta9 = theta_to_9dof(thetas6)
+            x_real = downsize_real(_to_unit_range(x_real_full), stage, alpha, spec.max_stage)
         image_size = x_real.shape[1]
 
         # ---------------- generator phase ----------------
-        dis.requires_grad_(False)
-        gen.requires_grad_(True)
-        x_fake = gen(z, stage, alpha, theta9)
-        y_fake, feat_d = dis(x_fake[..., :3], stage, alpha, return_hidden=True)
-        loss_gen = gen_adv_loss(y_fake)
-        metrics = {"gen/loss_adv": loss_gen.detach()}
-        if spec.use_rotate:
-            loss_rotate, _ = rotate_consistency_loss(
-                x_fake[:half], mats[:half], x_fake[half:], mats[half:],
-                occlusion_aware=spec.occlusion_aware,
-                lambda_geometric=spec.lambda_geometric,
-                gather_mode=spec.gather_mode,
-            )
-            if rotate_feature and feat_d is not None:
-                loss_rotate = loss_rotate + _feature_rotate_loss(feat_d, x_real, mats, spec)
-            if spec.lambda_depth > 0:
-                # depth floor: push depth above depth_min (updater.py:357-359)
-                loss_rotate = loss_rotate + spec.lambda_depth * torch.mean(
-                    torch.relu(spec.depth_min - x_fake[..., -1]) ** 2
-                )
-            metrics["gen/loss_rotate"] = loss_rotate.detach()
-            lam = spec.lambda_rotate if image_size <= 128 else spec.lambda_rotate * 2
-            loss_gen = loss_gen + loss_rotate * lam
-            if spec.use_occupancy:
-                if occupancy_eps is None:
-                    shape = (spec.batch_size, 1, x_fake.shape[1] * x_fake.shape[2])
-                    occupancy_eps = 0.05 * torch.randn(shape, generator=generator, device=device)
-                loss_occ = occupancy_net_loss(
-                    gen.occupancy_logits, x_fake[..., -1:], mats, z.reshape(z.shape[0], -1),
-                    occupancy_eps.to(device),
-                )
-                metrics["gen/loss_occupancy"] = loss_occ.detach()
-                loss_gen = loss_gen + loss_occ * spec.lambda_occupancy
-
-        _update_gen(state, spec, loss_gen)
+        with trace.span("step.gen"):
+            with trace.span("step.gen.forward"):
+                dis.requires_grad_(False)
+                gen.requires_grad_(True)
+                x_fake = gen(z, stage, alpha, theta9)
+                y_fake, feat_d = dis(x_fake[..., :3], stage, alpha, return_hidden=True)
+                loss_gen = gen_adv_loss(y_fake)
+                metrics = {"gen/loss_adv": loss_gen.detach()}
+                if spec.use_rotate:
+                    with trace.span("step.gen.loss3d"):
+                        loss_rotate, _ = rotate_consistency_loss(
+                            x_fake[:half], mats[:half], x_fake[half:], mats[half:],
+                            occlusion_aware=spec.occlusion_aware,
+                            lambda_geometric=spec.lambda_geometric,
+                            gather_mode=spec.gather_mode,
+                        )
+                        if rotate_feature and feat_d is not None:
+                            loss_rotate = loss_rotate + _feature_rotate_loss(feat_d, x_real, mats, spec)
+                        if spec.lambda_depth > 0:
+                            # depth floor: push depth above depth_min (updater.py:357-359)
+                            loss_rotate = loss_rotate + spec.lambda_depth * torch.mean(
+                                torch.relu(spec.depth_min - x_fake[..., -1]) ** 2
+                            )
+                        metrics["gen/loss_rotate"] = loss_rotate.detach()
+                        lam = spec.lambda_rotate if image_size <= 128 else spec.lambda_rotate * 2
+                        loss_gen = loss_gen + loss_rotate * lam
+                        if spec.use_occupancy:
+                            if occupancy_eps is None:
+                                shape = (spec.batch_size, 1, x_fake.shape[1] * x_fake.shape[2])
+                                occupancy_eps = 0.05 * torch.randn(shape, generator=generator, device=device)
+                            loss_occ = occupancy_net_loss(
+                                gen.occupancy_logits, x_fake[..., -1:], mats, z.reshape(z.shape[0], -1),
+                                occupancy_eps.to(device),
+                            )
+                            metrics["gen/loss_occupancy"] = loss_occ.detach()
+                            loss_gen = loss_gen + loss_occ * spec.lambda_occupancy
+            _update_gen(state, spec, loss_gen)
 
         # ---------------- discriminator phase ----------------
-        # D sees the *pre-update* fakes, detached (updater.py:407)
-        x_fake_rgb = x_fake[..., :3].detach().requires_grad_(feature_penalty)
-        loss_dis, feat_fake = _dis_adv_and_penalty(state, spec, x_fake_rgb, x_real, stage, alpha, metrics)
-        if rotate_feature and feat_fake is not None:
-            # D *maximises* the feature 3D-consistency error
-            loss_dis = loss_dis - _feature_rotate_loss(feat_fake, x_real, mats, spec)
-            if feature_penalty:
-                # the feature tap's input gradient, kept differentiable for D's parameters
-                (g_fake,) = torch.autograd.grad(feat_fake.sum(), x_fake_rgb, create_graph=True)
-                g_norm = torch.sqrt(torch.sum(g_fake**2, dim=tuple(range(1, g_fake.dim()))) + 1e-24)
-                loss_dis = loss_dis + spec.lambda_gp * l2_loss(g_norm, 0.0)
-        metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
-        _update_dis(state, spec, loss_dis)
+        with trace.span("step.dis"):
+            with trace.span("step.dis.forward"):
+                # D sees the *pre-update* fakes, detached (updater.py:407)
+                x_fake_rgb = x_fake[..., :3].detach().requires_grad_(feature_penalty)
+                loss_dis, feat_fake = _dis_adv_and_penalty(state, spec, x_fake_rgb, x_real, stage, alpha, metrics)
+                if rotate_feature and feat_fake is not None:
+                    # D *maximises* the feature 3D-consistency error
+                    loss_dis = loss_dis - _feature_rotate_loss(feat_fake, x_real, mats, spec)
+                    if feature_penalty:
+                        # the feature tap's input gradient, kept differentiable for D's parameters
+                        (g_fake,) = torch.autograd.grad(feat_fake.sum(), x_fake_rgb, create_graph=True)
+                        g_norm = torch.sqrt(torch.sum(g_fake**2, dim=tuple(range(1, g_fake.dim()))) + 1e-24)
+                        loss_dis = loss_dis + spec.lambda_gp * l2_loss(g_norm, 0.0)
+                metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
+            _update_dis(state, spec, loss_dis)
         return _finish(state, spec, metrics, loss_gen, loss_dis, stage, alpha, image_size, device)
 
     return step
@@ -302,23 +319,29 @@ def make_rgb_train_step(make_hidden: Callable[[Optional[torch.Generator], int], 
         z: Optional[torch.Tensor] = None,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         device = x_real_full.device
-        if z is None:
-            z = torch.cat([make_hidden(generator, half)] * 2, dim=0)  # paired (updater.py:525)
-        z = z.to(device)
-        x_real = downsize_real(_to_unit_range(x_real_full), stage, alpha, spec.max_stage)
+        with trace.span("step.inputs", step=state.iteration):
+            if z is None:
+                z = torch.cat([make_hidden(generator, half)] * 2, dim=0)  # paired (updater.py:525)
+            z = z.to(device)
+            x_real = downsize_real(_to_unit_range(x_real_full), stage, alpha, spec.max_stage)
 
         # ---------------- generator phase ----------------
-        state.dis.requires_grad_(False)
-        state.gen.requires_grad_(True)
-        x_fake = state.gen(z, stage, alpha, None)
-        loss_gen = gen_adv_loss(state.dis(x_fake[..., :3], stage, alpha))
-        metrics = {"gen/loss_adv": loss_gen.detach()}
-        _update_gen(state, spec, loss_gen)
+        with trace.span("step.gen"):
+            with trace.span("step.gen.forward"):
+                state.dis.requires_grad_(False)
+                state.gen.requires_grad_(True)
+                x_fake = state.gen(z, stage, alpha, None)
+                loss_gen = gen_adv_loss(state.dis(x_fake[..., :3], stage, alpha))
+                metrics = {"gen/loss_adv": loss_gen.detach()}
+            _update_gen(state, spec, loss_gen)
 
         # ---------------- discriminator phase ----------------
-        loss_dis, _ = _dis_adv_and_penalty(state, spec, x_fake[..., :3].detach(), x_real, stage, alpha, metrics)
-        metrics["dis/loss_adv"] = loss_dis.detach()
-        _update_dis(state, spec, loss_dis)
+        with trace.span("step.dis"):
+            with trace.span("step.dis.forward"):
+                loss_dis, _ = _dis_adv_and_penalty(
+                    state, spec, x_fake[..., :3].detach(), x_real, stage, alpha, metrics)
+                metrics["dis/loss_adv"] = loss_dis.detach()
+            _update_dis(state, spec, loss_dis)
         return _finish(state, spec, metrics, loss_gen, loss_dis, stage, alpha, x_real.shape[1], device)
 
     return step

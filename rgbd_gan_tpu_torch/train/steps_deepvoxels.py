@@ -31,6 +31,9 @@ What differs from the RGBD step, all as in the reference:
   gradients and the metrics (the forwards normalise with each rank's own
   batch: not a synchronised BatchNorm)
 
+The step's spans are the RGBD step's, with the D phase's render in
+``step.dis.render``.
+
 The step mutates the state in place.
 """
 
@@ -47,6 +50,7 @@ from .ema import soft_copy_params
 from .losses import dis_adv_loss, dis_out_and_r1, gen_adv_loss
 from .state import TrainState
 from ..parallel.mesh import mean_batch_stats
+from ..utils import trace
 from .steps import StepSpec, _finish, _grads, _in_dtype_of, _to_unit_range
 
 DEEPVOXELS_STAGE = 8  # floor of the pinned 8.5
@@ -114,74 +118,85 @@ def make_deepvoxels_train_step(
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         gen, dis = state.gen, state.dis
         device = x_real_full.device
-        # paired latents for both styles (updater_deepvoxels.py:146-148)
-        if z is None:
-            z = torch.cat([make_hidden(generator, half)] * 2, dim=0)
-        if z2 is None:
-            z2 = torch.cat([make_hidden(generator, half)] * 2, dim=0)
-        if thetas6 is None:
-            thetas6 = prior.sample(generator, spec.batch_size, device)
-        if z_d is None:
-            z_d = make_hidden(generator, spec.batch_size)
-        if z2_d is None:
-            z2_d = make_hidden(generator, spec.batch_size)
-        background = {}
-        if background_generator:
-            # unpaired draws, anew in the D phase (steps_deepvoxels.py:75-90)
-            background = {k: make_hidden(generator, spec.batch_size) if t is None else t
-                          for k, t in (("z3", z3), ("z4", z4), ("z3_d", z3_d), ("z4_d", z4_d))}
-        z, z2, thetas6, z_d, z2_d = (t.to(device) for t in (z, z2, thetas6, z_d, z2_d))
-        background = {k: t.to(device) for k, t in background.items()}
-        mats = camera_matrices(thetas6)
-        theta9 = theta_to_9dof(thetas6)
-        x_real = _avg_pool_to(_to_unit_range(x_real_full), IMG_SIZE)
+        with trace.span("step.inputs", step=state.iteration):
+            # paired latents for both styles (updater_deepvoxels.py:146-148)
+            if z is None:
+                z = torch.cat([make_hidden(generator, half)] * 2, dim=0)
+            if z2 is None:
+                z2 = torch.cat([make_hidden(generator, half)] * 2, dim=0)
+            if thetas6 is None:
+                thetas6 = prior.sample(generator, spec.batch_size, device)
+            if z_d is None:
+                z_d = make_hidden(generator, spec.batch_size)
+            if z2_d is None:
+                z2_d = make_hidden(generator, spec.batch_size)
+            background = {}
+            if background_generator:
+                # unpaired draws, anew in the D phase (steps_deepvoxels.py:75-90)
+                background = {k: make_hidden(generator, spec.batch_size) if t is None else t
+                              for k, t in (("z3", z3), ("z4", z4), ("z3_d", z3_d), ("z4_d", z4_d))}
+            z, z2, thetas6, z_d, z2_d = (t.to(device) for t in (z, z2, thetas6, z_d, z2_d))
+            background = {k: t.to(device) for k, t in background.items()}
+            mats = camera_matrices(thetas6)
+            theta9 = theta_to_9dof(thetas6)
+            x_real = _avg_pool_to(_to_unit_range(x_real_full), IMG_SIZE)
 
         # ---------------- generator phase ----------------
-        dis.requires_grad_(False)
-        gen.requires_grad_(True)
-        x_fake = gen(z, mats, z2, theta9, background.get("z3"), background.get("z4"))
-        y_fake = dis(x_fake[..., :3], stage, alpha)
-        loss_gen = gen_adv_loss(y_fake, focal_loss_gamma)
-        metrics = {"gen/loss_adv": loss_gen.detach()}
-        if spec.use_rotate:
-            if background_generator:
-                virtual = mats.clone()
-                virtual[:, :3, 3] = 0.0
-                loss_rotate = rotate_loss(x_fake, mats, max_depth=3.0) + rotate_loss(x_fake, virtual, min_depth=3.0)
-            else:
-                loss_rotate = rotate_loss(x_fake, mats)
-            loss_rotate = loss_rotate + spec.lambda_depth * torch.mean(
-                torch.relu(spec.depth_min - x_fake[..., -1]) ** 2
-            )
-            metrics["gen/loss_rotate"] = loss_rotate.detach()
-            loss_gen = loss_gen + loss_rotate * LAMBDA_ROTATE_FIXED
+        with trace.span("step.gen"):
+            with trace.span("step.gen.forward"):
+                dis.requires_grad_(False)
+                gen.requires_grad_(True)
+                x_fake = gen(z, mats, z2, theta9, background.get("z3"), background.get("z4"))
+                y_fake = dis(x_fake[..., :3], stage, alpha)
+                loss_gen = gen_adv_loss(y_fake, focal_loss_gamma)
+                metrics = {"gen/loss_adv": loss_gen.detach()}
+                if spec.use_rotate:
+                    with trace.span("step.gen.loss3d"):
+                        if background_generator:
+                            virtual = mats.clone()
+                            virtual[:, :3, 3] = 0.0
+                            loss_rotate = (rotate_loss(x_fake, mats, max_depth=3.0)
+                                           + rotate_loss(x_fake, virtual, min_depth=3.0))
+                        else:
+                            loss_rotate = rotate_loss(x_fake, mats)
+                        loss_rotate = loss_rotate + spec.lambda_depth * torch.mean(
+                            torch.relu(spec.depth_min - x_fake[..., -1]) ** 2
+                        )
+                        metrics["gen/loss_rotate"] = loss_rotate.detach()
+                        loss_gen = loss_gen + loss_rotate * LAMBDA_ROTATE_FIXED
 
-        # the map optimizer first, then the whole-generator optimizer over the
-        # same gradients (the mapping is in both: train_rgbd.py:335-343)
-        map_params = list(gen.mapping.parameters())
-        grads = _grads(spec, loss_gen, map_params + state.opt_gen.params)
-        state.opt_map.step(grads[: len(map_params)])
-        state.opt_gen.step(grads[len(map_params):])
-        gen.requires_grad_(False)
-        if spec.keep_smoothed_gen and state.ema_gen is not None:
-            soft_copy_params(state.ema_gen, gen, 1.0 - spec.smoothing)
+            # the map optimizer first, then the whole-generator optimizer over the
+            # same gradients (the mapping is in both: train_rgbd.py:335-343)
+            map_params = list(gen.mapping.parameters())
+            grads = _grads(spec, loss_gen, map_params + state.opt_gen.params, "step.gen.backward")
+            with trace.span("step.gen.adam"):
+                state.opt_map.step(grads[: len(map_params)])
+                state.opt_gen.step(grads[len(map_params):])
+                gen.requires_grad_(False)
+                if spec.keep_smoothed_gen and state.ema_gen is not None:
+                    soft_copy_params(state.ema_gen, gen, 1.0 - spec.smoothing)
 
         # ---------------- discriminator phase ----------------
-        # fresh unpaired latents through the *updated* generator, no gradient
-        with torch.no_grad():
-            x_fake_rgb = gen(z_d, mats, z2_d, theta9, background.get("z3_d"), background.get("z4_d"))[..., :3]
-        dis.requires_grad_(True)
-        y_fake = dis(x_fake_rgb, stage, alpha)
-        if r1:
-            y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), _in_dtype_of(dis, x_real))
-            gp = spec.lambda_gp * gp_raw
-            loss_dis = dis_adv_loss(y_fake, y_real) + gp
-            metrics["dis/loss_gp"] = gp.detach()
-        else:
-            loss_dis = dis_adv_loss(y_fake, dis(x_real, stage, alpha))
-        metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
-        state.opt_dis.step(_grads(spec, loss_dis, state.opt_dis.params))
-        dis.requires_grad_(False)
+        with trace.span("step.dis"):
+            # fresh unpaired latents through the *updated* generator, no gradient
+            with trace.span("step.dis.render"), torch.no_grad():
+                x_fake_rgb = gen(z_d, mats, z2_d, theta9, background.get("z3_d"), background.get("z4_d"))[..., :3]
+            with trace.span("step.dis.forward"):
+                dis.requires_grad_(True)
+                y_fake = dis(x_fake_rgb, stage, alpha)
+                if r1:
+                    with trace.span("step.dis.r1"):
+                        y_real, gp_raw = dis_out_and_r1(lambda xr: dis(xr, stage, alpha), _in_dtype_of(dis, x_real))
+                    gp = spec.lambda_gp * gp_raw
+                    loss_dis = dis_adv_loss(y_fake, y_real) + gp
+                    metrics["dis/loss_gp"] = gp.detach()
+                else:
+                    loss_dis = dis_adv_loss(y_fake, dis(x_real, stage, alpha))
+                metrics["dis/loss_adv"] = loss_dis.detach()  # the reference reports the total
+            grads = _grads(spec, loss_dis, state.opt_dis.params, "step.dis.backward")
+            with trace.span("step.dis.adam"):
+                state.opt_dis.step(grads)
+            dis.requires_grad_(False)
         if spec.axis_name is not None:
             mean_batch_stats(gen)
         return _finish(state, spec, metrics, loss_gen, loss_dis, stage, 0.5, IMG_SIZE, device)

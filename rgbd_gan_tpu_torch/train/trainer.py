@@ -31,7 +31,9 @@ conditioning, a 3-channel head) with the RGB step (no 3D loss; the
 DeepVoxels step takes precedence, as in the JAX trainer), and its previews
 have no pose sweep. ``nvprof: True`` (or ``enable_cuda_profiling``) caps the
 run at 10 iterations and records them with ``torch.profiler`` into
-``[out]/profile/``, the twin of the JAX trainer's ``jax.profiler`` trace.
+``[out]/profile/``, the twin of the JAX trainer's ``jax.profiler`` trace,
+with the port's spans and counters (:mod:`..utils.trace`) in ``spans.json``.
+:meth:`Trainer.iterate` is one iteration of the loop.
 ``use_mpi: True`` trains data-parallel when the process group (see
 :func:`..parallel.mesh.maybe_initialize_distributed`) holds more than one
 rank: each rank takes ``batchsize / world`` images (an even number: the
@@ -69,6 +71,7 @@ from ..models.discriminator import Discriminator
 from ..models.deepvoxels import OCCLUSION_UNET_FAULT, build_deepvoxels_generator
 from ..models.generators import DCGANGenerator, StyleGANGenerator, dcgan_make_hidden, stylegan_make_hidden
 from ..parallel.mesh import DATA_AXIS, all_gather_bytes, is_master, make_mesh, rank, rank_seed, replicate, world_size
+from ..utils import trace
 from . import checkpoint as ckpt
 from .ema import copy_params
 from .optim import make_optimizer, make_stylegan_gen_optimizer
@@ -173,71 +176,73 @@ class Trainer:
         seed: int = 0,
         device: torch.device | str = "cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
-        if self.device.type == "cuda" and (self.device.index or 0) >= torch.cuda.device_count():
-            raise RuntimeError(f"Trainer: no {self.device}; this machine has {torch.cuda.device_count()} card(s)")
-        _check_config(config)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        # bf16 products are summed in float32, as in the JAX package
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        self.config = config
-        self.stage_interval = parse_stage_interval(config.stage_interval)
-        self.max_stage = config.max_stage
-        self.prior = CameraParamPrior(config)
-        self.batch_size = config.batchsize  # global: over every rank
-        self.world, self.rank = world_size(), rank()
-        self.use_mesh = bool(config.use_mpi) and self.world > 1
-        self.local_batch = self.batch_size  # per rank
-        if self.use_mesh:
-            if self.batch_size % (2 * self.world):
-                # the steps draw their latents in pairs: an odd batch a rank breaks them
-                raise ValueError(f"batchsize {self.batch_size} does not split into an even batch for each of "
-                                 f"{self.world} ranks")
-            self.local_batch = self.batch_size // self.world
-        self.mesh = make_mesh(self.device.type) if self.use_mesh else None
+        with trace.setup_span("setup.trainer"):
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
+            if self.device.type == "cuda" and (self.device.index or 0) >= torch.cuda.device_count():
+                raise RuntimeError(f"Trainer: no {self.device}; this machine has {torch.cuda.device_count()} card(s)")
+            _check_config(config)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            # bf16 products are summed in float32, as in the JAX package
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            self.config = config
+            self.stage_interval = parse_stage_interval(config.stage_interval)
+            self.max_stage = config.max_stage
+            self.prior = CameraParamPrior(config)
+            self.batch_size = config.batchsize  # global: over every rank
+            self.world, self.rank = world_size(), rank()
+            self.use_mesh = bool(config.use_mpi) and self.world > 1
+            self.local_batch = self.batch_size  # per rank
+            if self.use_mesh:
+                if self.batch_size % (2 * self.world):
+                    # the steps draw their latents in pairs: an odd batch a rank breaks them
+                    raise ValueError(f"batchsize {self.batch_size} does not split into an even batch for each of "
+                                     f"{self.world} ranks")
+                self.local_batch = self.batch_size // self.world
+            self.mesh = make_mesh(self.device.type) if self.use_mesh else None
 
-        init_gen = torch.Generator().manual_seed(seed)
-        self.arch = config.generator_architecture
-        self.rgb = bool(config.rgb)
-        gen, make_hidden = setup_generator(config, init_gen, self.device.type == "cuda")
-        dis = setup_discriminator(config, init_gen)
-        gen.to(self.device).requires_grad_(False)
-        dis.to(self.device).requires_grad_(False)
-        self.make_hidden = lambda g, n: make_hidden(g, n, self.device)
+            init_gen = torch.Generator().manual_seed(seed)
+            self.arch = config.generator_architecture
+            self.rgb = bool(config.rgb)
+            gen, make_hidden = setup_generator(config, init_gen, self.device.type == "cuda")
+            dis = setup_discriminator(config, init_gen)
+            gen.to(self.device).requires_grad_(False)
+            dis.to(self.device).requires_grad_(False)
+            self.make_hidden = lambda g, n: make_hidden(g, n, self.device)
 
-        a_g, a_d = config.adam_alpha_g, config.adam_alpha_d
-        b1, b2 = config.adam_beta1, config.adam_beta2
-        ema = copy_params(gen) if config.keep_smoothed_gen else None
-        if self.arch == "stylegan":
-            opt_gen = make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2, rgbd=not self.rgb)
-        else:
-            # dcgan: the whole generator; deepvoxels: the mapping is also
-            # inside the whole-generator optimizer (train_rgbd.py:335-343)
-            opt_gen = make_optimizer(gen.named_parameters(), a_g, b1, b2)
-        self.state = TrainState(
-            gen=gen,
-            dis=dis,
-            opt_map=None if self.arch == "dcgan" else make_optimizer(gen.mapping.named_parameters(), a_g / 100, b1, b2),
-            opt_gen=opt_gen,
-            opt_dis=make_optimizer(dis.named_parameters(), a_d, b1, b2),
-            ema_gen=ema,
-        )
-        # the train step's draws (latents and poses) come from this stream
-        self.rng = torch.Generator(device=self.device).manual_seed(
-            rank_seed(seed, self.rank, self.world) if self.use_mesh else seed)
-        if self.use_mesh:
-            replicate(self._modules())
+            a_g, a_d = config.adam_alpha_g, config.adam_alpha_d
+            b1, b2 = config.adam_beta1, config.adam_beta2
+            ema = copy_params(gen) if config.keep_smoothed_gen else None
+            if self.arch == "stylegan":
+                opt_gen = make_stylegan_gen_optimizer(gen.gen.named_parameters(), a_g, b1, b2, rgbd=not self.rgb)
+            else:
+                # dcgan: the whole generator; deepvoxels: the mapping is also
+                # inside the whole-generator optimizer (train_rgbd.py:335-343)
+                opt_gen = make_optimizer(gen.named_parameters(), a_g, b1, b2)
+            self.state = TrainState(
+                gen=gen,
+                dis=dis,
+                opt_map=(None if self.arch == "dcgan"
+                         else make_optimizer(gen.mapping.named_parameters(), a_g / 100, b1, b2)),
+                opt_gen=opt_gen,
+                opt_dis=make_optimizer(dis.named_parameters(), a_d, b1, b2),
+                ema_gen=ema,
+            )
+            # the train step's draws (latents and poses) come from this stream
+            self.rng = torch.Generator(device=self.device).manual_seed(
+                rank_seed(seed, self.rank, self.world) if self.use_mesh else seed)
+            if self.use_mesh:
+                replicate(self._modules())
 
-        if dataset is None:
-            dataset = prepare_dataset(config)
-        shard, shards = (self.rank, self.world) if self.use_mesh else (0, 1)
-        self.iterator = ImageDataset(dataset, self.local_batch, seed=seed, shard_index=shard, num_shards=shards)
-        self._step_cache: Dict[StepSpec, Callable] = {}
-        self._preview_warned = False
-        self.out = config.out or "out"
+            if dataset is None:
+                dataset = prepare_dataset(config)
+            shard, shards = (self.rank, self.world) if self.use_mesh else (0, 1)
+            self.iterator = ImageDataset(dataset, self.local_batch, seed=seed, shard_index=shard, num_shards=shards)
+            self._step_cache: Dict[StepSpec, Callable] = {}
+            self._preview_warned = False
+            self.out = config.out or "out"
 
     # ------------------------------------------------------------------
 
@@ -281,8 +286,20 @@ class Trainer:
                 step = make_rgb_train_step(self.make_hidden, spec)
             else:
                 step = make_rgbd_train_step(self.make_hidden, self.prior, spec)
-            self._step_cache[spec] = step
+            self._step_cache[spec] = self._first_call_in_setup_span(spec, step)
         return self._step_cache[spec]
+
+    def _first_call_in_setup_span(self, spec: StepSpec, step: Callable) -> Callable:
+        """``step``, its first call timed in a ``setup.first_step`` span (on
+        the host, enqueue only: cuDNN's heuristics, lazy loads); later calls
+        get ``step`` itself."""
+
+        def first_call(*args, **kwargs):
+            self._step_cache[spec] = step
+            with trace.setup_span("setup.first_step"):
+                return step(*args, **kwargs)
+
+        return first_call
 
     def stage(self, iteration: Optional[int] = None) -> float:
         if self.arch == "deepvoxels":
@@ -391,13 +408,17 @@ class Trainer:
     def _profiled(self) -> Iterator[None]:
         """Record the block with ``torch.profiler`` (the CPU, and the card's
         kernels on a CUDA device) and write its Chrome trace to
-        ``[out]/profile/trace.json``. A profiler that records nothing (no
+        ``[out]/profile/trace.json`` and the port's spans and counters
+        (:func:`..utils.trace.summary`: calls and host ms by span, on the
+        card also device ms, syncs and the kernels' launches per step) to
+        ``[out]/profile/spans.json``. A profiler that records nothing (no
         event; on the card, no kernel) raises instead of leaving the run
         unprofiled."""
         from torch.profiler import ProfilerActivity, profile
 
         on_cuda = self.device.type == "cuda"
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
+        trace.reset()  # spans.json holds the block's spans alone
         with profile(activities=activities) as prof:
             yield
         events = prof.profiler.kineto_results.events()  # the raw records: prof.events() builds a tree, slowly
@@ -405,8 +426,30 @@ class Trainer:
             raise RuntimeError("nvprof: torch.profiler recorded no " + ("CUDA kernel" if on_cuda else "event"))
         os.makedirs(os.path.join(self.out, "profile"), exist_ok=True)
         prof.export_chrome_trace(os.path.join(self.out, "profile", "trace.json"))
+        with open(os.path.join(self.out, "profile", "spans.json"), "w") as f:
+            json.dump(trace.summary(), f, indent=1)
+        trace.reset()
 
     # ------------------------------------------------------------------
+
+    def iterate(self) -> Dict[str, torch.Tensor]:
+        """One iteration of the loop: the stage and the step's spec, the
+        iterator's next batch moved to the device, the step, and the NaN
+        guard; returns the step's metrics (0-dim tensors on the device)."""
+        it = self.state.iteration
+        st = self.stage(it)
+        floor, alpha = decompose_stage(st, self.max_stage)
+        spec = self._spec_for(it, floor)
+        with trace.span("train.batch", step=it):
+            x = torch.from_numpy(self.iterator.next()).to(self.device)
+        with trace.span("train.step"):
+            _, metrics = self._step(spec)(self.state, x, alpha, self.rng)
+        # the NaN guard fires every iteration (reference asserts,
+        # updater.py:336,439): a host sync, besides those in the step
+        with trace.span("train.nan_sync"):
+            if bool(metrics["nan"]):
+                raise FloatingPointError(f"NaN loss at iteration {self.state.iteration} (stage {st:.3f})")
+        return metrics
 
     def run(
         self,
@@ -431,16 +474,8 @@ class Trainer:
         last_log: Dict[str, Any] = {}
         with self._profiled() if profiling and is_master() else contextlib.nullcontext():
             while self.state.iteration < total:
-                st = self.stage(self.state.iteration)
-                floor, alpha = decompose_stage(st, self.max_stage)
-                spec = self._spec_for(self.state.iteration, floor)
-                x = torch.from_numpy(self.iterator.next()).to(self.device)
-                _, metrics = self._step(spec)(self.state, x, alpha, self.rng)
+                metrics = self.iterate()
                 it = self.state.iteration
-                # the NaN guard fires every iteration (reference asserts,
-                # updater.py:336,439); this is the step's one host sync
-                if bool(metrics["nan"]):
-                    raise FloatingPointError(f"NaN loss at iteration {it} (stage {st:.3f})")
                 if it % display_interval == 0 or it == total:
                     row = {
                         "iteration": it,

@@ -17,6 +17,7 @@ LAZY_ONLY = {"yaml", "PIL"}
 SOURCES = sorted((ROOT / "rgbd_gan_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "tests" / "test_torch_kernels_cuda.py",
+    ROOT / "tests" / "test_torch_trace.py",
 ]
 
 

@@ -9,7 +9,8 @@ its tools.
   JAX RGB generator's and discriminator's flat keys, with their shapes, from
   the JAX modules' ``init_all`` alone.
 - ``nvprof: True`` runs exactly 10 iterations, whatever ``iteration`` says,
-  and writes a Chrome trace with events under ``[out]/profile/``.
+  and writes a Chrome trace with events, and the port's spans, under
+  ``[out]/profile/``.
 - ``tools/validate_3d_structure.py`` on a tiny RGBD snapshot prints its
   JSON line; ``tools/fid_trend.py`` records what the evaluation CLI wrote
   for each tag.
@@ -111,6 +112,17 @@ def test_nvprof_runs_ten_iterations_and_writes_a_trace(tmp_path):
     assert trainer.state.iteration == PROFILED_ITERATIONS == 10
     trace = tmp_path / "out" / "profile" / "trace.json"
     assert '"traceEvents"' in trace.read_text() and '"aten::convolution"' in trace.read_text()
+    assert '"step.gen"' in trace.read_text() and '"train.step"' in trace.read_text()
+    # the port's spans beside it: calls and host ms by span (no device ms, syncs or launches off the card)
+    spans = json.loads((tmp_path / "out" / "profile" / "spans.json").read_text())
+    assert spans["steps"] == 10 and "launches_per_step" not in spans
+    for name in ("train.batch", "train.step", "train.nan_sync", "step.inputs", "step.gen", "step.gen.forward",
+                 "step.gen.backward", "step.gen.adam", "step.dis", "step.dis.forward", "step.dis.backward",
+                 "step.dis.adam", "step.finish"):
+        assert spans["spans"][name]["calls"] == 10, name
+        assert spans["spans"][name]["host_ms"] > 0 and "device_ms" not in spans["spans"][name]
+    assert spans["spans"]["setup.first_step"]["calls"] == 1  # the first step call, inside the profiled run
+    assert "step.dis.r1" not in spans["spans"]  # lambda_gp 0: no R1
 
 
 def test_validate_3d_structure_prints_its_json_line(tmp_path, capsys):
