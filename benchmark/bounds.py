@@ -1,5 +1,5 @@
 """The least time the card could take for the port's hand-written kernels at
-a cell's shapes, and the table of the card's peaks.
+a cell's shapes (each architecture's ``kernel_calls``), and the card's peaks.
 
 Each bound counts only what any implementation must move for the call:
 its outputs written once and the inputs it must read in full. Reads that
@@ -22,32 +22,11 @@ multiply-adds a channel, far below the bytes' time, so bytes decide.
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Optional
 
 # NVIDIA H100 SXM data sheet: dense rates, 700 W
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
-
-FRUSTUM_CELLS = 56 * 64 * 64
-VOXEL_FEATURES = 32
-IMAGE_CHANNELS = 4  # RGB and depth
-
-
-def call_shapes(deepvoxels: bool, local_batch: int, image_px: int) -> Dict[str, tuple]:
-    """(B, N, C) of each kernel kind one step calls, and how often.
-
-    The 3D-consistency loss gathers both directions of each render pair in
-    one call, so K1/K2 see the whole local batch, N = H*W points, C = 4.
-    DeepVoxels lifts every render: twice forward (G phase, D phase) and
-    once backward, at B = the local batch."""
-    px = 64 if deepvoxels else image_px
-    shapes = {"bilinear_fwd": ((local_batch, px * px, IMAGE_CHANNELS), 1),
-              "bilinear_bwd": ((local_batch, px * px, IMAGE_CHANNELS), 1)}
-    if deepvoxels:
-        shapes["lift_fwd"] = ((local_batch, FRUSTUM_CELLS, VOXEL_FEATURES), 2)
-        shapes["lift_bwd"] = ((local_batch, FRUSTUM_CELLS, VOXEL_FEATURES), 1)
-    return shapes
-
 
 def bound_bytes(kind: str, b: int, n: int, c: int) -> int:
     if kind == "bilinear_fwd":

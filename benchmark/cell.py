@@ -51,8 +51,11 @@ class Cell:
         return self.batch // self.ranks
 
     @property
-    def deepvoxels(self) -> bool:
-        return self.config["generator_architecture"] == "deepvoxels"
+    def architecture(self):
+        """The configuration's ``reference/<generator_architecture>.py`` (``reference/step.py``)."""
+        from .reference.step import architecture
+
+        return architecture(self.config)
 
     @property
     def precision(self) -> str:

@@ -79,7 +79,7 @@ def main(argv=None) -> int:
         for kind, rounding, fault in kinds:
             planted = correctness.run_reference(cell, seed, run["batches"], device, rounding=rounding, fault=fault)
             emit({"workload": cell.workload, "seed": seed, "kind": kind,
-                  "readings": correctness.readings(planted, reference, bad, cell.deepvoxels),
+                  "readings": correctness.readings(planted, reference, bad),
                   "losses": planted.losses, "worst_grad_leaves": correctness.worst_leaves(planted.grad_norms, reference.grad_norms)})
         del reference
         gc.collect()

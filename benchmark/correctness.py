@@ -68,6 +68,7 @@ class Capture:
         self.grad_norms: Dict[str, float] = {}  # "opt/leaf" -> norm of the step-1 gradient
         self.params: Dict[str, torch.Tensor] = {}  # "gen.x" / "dis.x" after step 3
         self.rule_grad_norms: Dict[str, float] = {}  # the reference's step-1 gradient in float32 (the nought rule)
+        self.prefixes: Dict[str, str] = {}  # the reference's: optimizer -> the prefix of its leaves' parameter names
 
 
 def reference_weights(cell: Cell, seed: int, device) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -117,7 +118,8 @@ def _reference_steps(cell: Cell, cfg: dict, seed: int, batches, device, steps: i
     draws = [inputs.draws(cell, seed, r, device) for r in range(cell.ranks)]
     init = params_of(models)
     cap = Capture()
-    stage, alpha = _stage(cell)
+    cap.prefixes = {k: opt.prefix for k, opt in opts.items()}
+    step = ref.architecture(cfg).step
     tf32 = rounding == "tf32" and torch.device(device).type == "cuda"
     for i in range(steps):
         shards = []
@@ -132,10 +134,7 @@ def _reference_steps(cell: Cell, cfg: dict, seed: int, batches, device, steps: i
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
         try:
             with rounded_operands(None if tf32 else rounding):
-                if cell.deepvoxels:
-                    losses = ref.deepvoxels_step(cfg, models, opts, shards, i)
-                else:
-                    losses = ref.stylegan_step(cfg, models, opts, shards, i, stage, alpha)
+                losses = step(cfg, models, opts, shards, i)
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
         cap.losses.append({k: float(v) for k, v in losses.items()})
@@ -144,14 +143,6 @@ def _reference_steps(cell: Cell, cfg: dict, seed: int, batches, device, steps: i
     cap.params = {k: v - init[k] for k, v in params_of(models).items()}
     del models, opts
     return cap
-
-
-def _stage(cell: Cell):
-    """The pinned stage's floor and fade-in, as the program's schedule gives them."""
-    if cell.deepvoxels:
-        return ref.DEEPVOXELS_STAGE, ref.DEEPVOXELS_ALPHA
-    stage = cell.config["max_stage"] - 1e-8
-    return int(math.floor(stage)), stage - math.floor(stage)
 
 
 def _half(shard: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -172,12 +163,14 @@ def feed_bad_rows(batches: List[torch.Tensor], images: np.ndarray) -> int:
     return bad
 
 
-def _worst_gap(program: Dict[str, float], reference: Dict[str, float], keys) -> float:
+def _gap(program: Dict[str, float], reference: Dict[str, float], keys, pick=max) -> float:
+    """The worst leaf's gap (``pick=statistics.median``: the median leaf's),
+    each over the larger of its own norm and the median leaf's."""
     keys = list(keys)
     if not keys:
         return 0.0
     median = statistics.median(reference[k] for k in keys)
-    return max(abs(program[k] - reference[k]) / max(reference[k], median, 1e-30) for k in keys)
+    return pick(abs(program[k] - reference[k]) / max(reference[k], median, 1e-30) for k in keys)
 
 
 def nought_rule(reference: Capture) -> List[str]:
@@ -187,49 +180,34 @@ def nought_rule(reference: Capture) -> List[str]:
     return [k for k, g in rule.items() if g >= NOUGHT_SHARE * median]
 
 
-def change_norms(program: Capture, reference: Capture, whole_gen: bool):
+def change_norms(program: Capture, reference: Capture):
     """Norms of each kept parameter's change over the three steps, the
-    program's and the reference's. ``whole_gen``: the generator's optimizer
-    steps the whole generator (DeepVoxels), not the synthesis network alone
-    (StyleGAN)."""
-    prefix = {"map": "gen.mapping.", "gen": "gen." if whole_gen else "gen.gen.", "dis": "dis."}
-    kept_leaves = {prefix[key.split("/", 1)[0]] + key.split("/", 1)[1] for key in nought_rule(reference)}
+    program's and the reference's (the leaf ``opt/name`` is the parameter
+    of the reference optimizer's prefix and ``name``)."""
+    kept_leaves = {reference.prefixes[k.split("/", 1)[0]] + k.split("/", 1)[1] for k in nought_rule(reference)}
     kept = [k for k in reference.params if k in kept_leaves]
     c_ref = {k: _norm(reference.params[k]) for k in kept}
     c_prog = {k: _norm(program.params[k]) for k in kept}
     return c_prog, c_ref
 
 
-def readings(program: Capture, reference: Capture, bad_rows: int = 0, whole_gen: bool = False) -> Dict[str, float]:
+def readings(program: Capture, reference: Capture, bad_rows: int = 0) -> Dict[str, float]:
     """The numbers compared, and how many parameters the nought rule left
     out of the change."""
-    loss_gap = max(
-        abs(p[k] - r[k]) / max(abs(r[k]), LOSS_FLOOR)
-        for p, r in zip(program.losses, reference.losses) for k in LOSS_KEYS)
-    g_ref = reference.grad_norms
-    c_prog, c_ref = change_norms(program, reference, whole_gen)
+    def loss_gap(steps, keys):
+        return max(abs(p[k] - r[k]) / max(abs(r[k]), LOSS_FLOOR) for p, r in steps for k in keys)
 
-    def loss1(keys):
-        p, r = program.losses[0], reference.losses[0]
-        return max(abs(p[k] - r[k]) / max(abs(r[k]), LOSS_FLOOR) for k in keys)
-
-    gen_leaves = [k for k in g_ref if not k.startswith("dis/")]
-    return {"loss_gap": loss_gap, "loss1_gap": loss1(LOSS_KEYS), "loss1_gen_gap": loss1(GEN_LOSS_KEYS),
-            "loss1_gp_gap": loss1(("dis/loss_gp",)),
-            "grad_gap": _worst_gap(program.grad_norms, g_ref, g_ref),
-            "grad_gap_gen": _worst_gap(program.grad_norms, g_ref, gen_leaves),
-            "grad_gap_kept": _worst_gap(program.grad_norms, g_ref, nought_rule(reference)),
-            "change_gap": _worst_gap(c_prog, c_ref, c_ref), "change_gap_median": _median_gap(c_prog, c_ref, c_ref),
-            "feed_bad_rows": float(bad_rows), "leaves_left_out": float(len(reference.params) - len(c_ref))}
-
-
-def _median_gap(program: Dict[str, float], reference: Dict[str, float], keys) -> float:
-    """The median leaf's gap, each over the larger of its own norm and the median leaf's."""
-    keys = list(keys)
-    if not keys:
-        return 0.0
-    median = statistics.median(reference[k] for k in keys)
-    return statistics.median(abs(program[k] - reference[k]) / max(reference[k], median, 1e-30) for k in keys)
+    first = [(program.losses[0], reference.losses[0])]
+    g_prog, g_ref = program.grad_norms, reference.grad_norms
+    c_prog, c_ref = change_norms(program, reference)
+    gen_leaves, kept = [k for k in g_ref if not k.startswith("dis/")], nought_rule(reference)
+    return {"loss_gap": loss_gap(zip(program.losses, reference.losses), LOSS_KEYS),
+            "loss1_gap": loss_gap(first, LOSS_KEYS), "loss1_gen_gap": loss_gap(first, GEN_LOSS_KEYS),
+            "loss1_gp_gap": loss_gap(first, ("dis/loss_gp",)), "grad_gap": _gap(g_prog, g_ref, g_ref),
+            "grad_gap_gen": _gap(g_prog, g_ref, gen_leaves), "grad_gap_kept": _gap(g_prog, g_ref, kept),
+            "change_gap": _gap(c_prog, c_ref, c_ref),
+            "change_gap_median": _gap(c_prog, c_ref, c_ref, statistics.median), "feed_bad_rows": float(bad_rows),
+            "leaves_left_out": float(len(reference.params) - len(c_ref))}
 
 
 def worst_leaves(program: Dict[str, float], reference: Dict[str, float], n: int = 4) -> List[list]:

@@ -2,14 +2,14 @@
 
 PyTorch's table of FLOP formulas (``torch.utils.flop_counter``) counts
 every convolution and matrix product that the reference step dispatches on
-the ``meta`` device,
-where no data exists and only shapes flow: each forward, each input- and
-weight-gradient product, R1's double backward and, on DeepVoxels, the D
-phase's second generator forward. Elementwise work and the gathers are not
-counted. The count is taken at the global batch (data parallelism runs the
-same products, split over the ranks) and kept in the configuration's file
-as ``flops_per_step``: ``with_r1``, a step that pays R1, and, where the
-configuration's step can skip R1 (``r1_interval`` > 1, StyleGAN),
+the ``meta`` device, where no data exists and only shapes flow (those of
+the architecture's own draws): each forward, each input- and
+weight-gradient product, R1's double backward and any second generator
+forward of the D phase. Elementwise work and the gathers are not counted.
+The count is taken at the global batch (data parallelism runs the same
+products, split over the ranks) and kept in the configuration's file as
+``flops_per_step``: ``with_r1``, a step that pays R1, and, where the
+architecture's step can skip R1 (its ``LAZY_R1``: ``r1_interval`` > 1),
 ``without_r1``. A cell's count a step is their mean over its R1 cycle
 (``Cell.flops_per_step``), so a traffic mix that sets ``r1_interval``
 needs no count of its own:
@@ -31,7 +31,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from .cell import make_cell
-from .correctness import _stage
 from .reference import step as ref
 
 META = torch.device("meta")
@@ -57,36 +56,27 @@ class FlopCount(TorchDispatchMode):
 
 def step_flops(cell, with_r1: bool = True) -> int:
     """FLOPs of one reference step of ``cell`` at its global batch (one
-    shard), with R1 or (StyleGAN) without it."""
+    shard), with R1 or, where the architecture's step can skip it, without."""
+    arch = cell.architecture
+    if not with_r1 and not arch.LAZY_R1:
+        raise ValueError(f"{cell.config_name}: the step pays R1 on every step")
     cfg = dict(cell.config, r1_interval=1 if with_r1 else 2)
     with torch.device(META):
         models = ref.build(cfg, None, META)
     opts = ref.optimizers(cfg, models)
     b, px = cell.batch, cell.image_px
-    shard = {"x": torch.empty(b, px, px, 3, dtype=torch.uint8, device=META)}
-    ch = int(cfg["ch"])
-    shard["thetas6"] = torch.empty(b, 6, device=META)
-    if cell.deepvoxels:
-        for k in ("z", "z2", "z_d", "z2_d"):
-            shard[k] = torch.empty(b, ch, device=META)
-    else:
-        shard["z"] = torch.empty(b, 2 * ch, device=META)
+    shard = dict(arch.draws(cfg, None, b, META), x=torch.empty(b, px, px, 3, dtype=torch.uint8, device=META))
     with FlopCount() as counter:
-        if cell.deepvoxels:
-            if not with_r1:
-                raise ValueError("the DeepVoxels step pays R1 on every step")
-            ref.deepvoxels_step(cfg, models, opts, [shard], 0)
-        else:
-            stage, alpha = _stage(cell)
-            ref.stylegan_step(cfg, models, opts, [shard], 0 if with_r1 else 1, stage, alpha)
+        arch.step(cfg, models, opts, [shard], 0 if with_r1 else 1)
     return counter.total
 
 
 def config_counts(name: str) -> Dict[str, int]:
-    """The ``flops_per_step`` entry of the configuration ``name``."""
-    cell = make_cell(name, name, "f32" if "deepvoxels" in name else "f32_r1", 1)
+    """The ``flops_per_step`` entry of the configuration ``name`` (on the f32
+    traffic: no other key of a mix changes a count but ``r1_interval``)."""
+    cell = make_cell(name, name, "f32", 1)
     out = {"with_r1": step_flops(cell)}
-    if not cell.deepvoxels:
+    if cell.architecture.LAZY_R1:
         out["without_r1"] = step_flops(cell, with_r1=False)
     return out
 

@@ -6,10 +6,7 @@
   a ``torch.Generator`` seeded from the seed, and handed to the program and
   the reference alike
 - the latents and poses of the checked steps, one set a rank and a step,
-  drawn on the card: the StyleGAN latent (2ch, normalised by
-  ``sqrt(sum/ch)``, in pairs), the DeepVoxels latents (plain N(0, 1): two
-  paired ones for the G phase, two unpaired for the D phase) and paired
-  6-DoF poses from the configuration's ranges
+  drawn on the card by the architecture's reference module, one stream a rank
 
 Every seed gives the same sizes and the same amount of work; only the
 values differ. Seeds of any size are folded into the streams' ranges.
@@ -23,7 +20,6 @@ import numpy as np
 import torch
 
 from .cell import Cell
-from .reference.geometry import sample_poses
 
 CHECKED_STEPS = 3
 _STREAMS = {"images": 0, "weights": 1, "draws": 2, "trainer": 3}
@@ -52,27 +48,7 @@ def trainer_seed(seed: int) -> int:
     return stream_seed(seed, "trainer") % 2**31
 
 
-def _stylegan_latents(g: torch.Generator, n: int, ch: int, device) -> torch.Tensor:
-    z = torch.randn(n, ch * 2, generator=g, device=device)
-    return z / torch.sqrt(torch.sum(z * z, dim=1, keepdim=True) / ch + 1e-8)
-
-
 def draws(cell: Cell, seed: int, rank: int, device) -> List[Dict[str, torch.Tensor]]:
     """The injected draws of the checked steps for ``rank``: one dict a step."""
-    c = cell.config
     g = torch.Generator(device=device).manual_seed(stream_seed(seed, "draws", rank))
-    b, ch, half = cell.local_batch, int(c["ch"]), cell.local_batch // 2
-    ranges = [c["x_rotate"], c["y_rotate"], c["z_rotate"], c["x_translate"], c["y_translate"], c["z_translate"]]
-    out = []
-    for _ in range(CHECKED_STEPS):
-        if cell.deepvoxels:
-            d = {"z": torch.randn(half, ch, generator=g, device=device).repeat(2, 1),
-                 "z2": torch.randn(half, ch, generator=g, device=device).repeat(2, 1)}
-        else:
-            d = {"z": _stylegan_latents(g, half, ch, device).repeat(2, 1)}
-        d["thetas6"] = sample_poses(g, b, ranges, ranges[:3], bool(c.get("uniform_distribution")), device)
-        if cell.deepvoxels:
-            d["z_d"] = torch.randn(b, ch, generator=g, device=device)
-            d["z2_d"] = torch.randn(b, ch, generator=g, device=device)
-        out.append(d)
-    return out
+    return [cell.architecture.draws(cell.config, g, cell.local_batch, device) for _ in range(CHECKED_STEPS)]

@@ -10,7 +10,7 @@ bounds = importlib.import_module("benchmark.bounds")
 
 def read(run):
     cell = run.cell
-    shapes = bounds.call_shapes(cell.deepvoxels, cell.local_batch, cell.image_px)
+    shapes = cell.architecture.kernel_calls(cell.local_batch, cell.image_px)
     bound = spent = 0.0
     for r in run.records:
         kind = bounds.kind_of(r["name"]) if r["layer"] == "kernels" else None

@@ -106,12 +106,11 @@ def finish(cell: Cell, seed: int, device, lead: session.RankResult, images, trac
     batches = batches or [lead.capture.batches]
     reference = correctness.run_reference(cell, seed, batches, device)
     bad = correctness.feed_bad_rows([b for rank in batches for b in rank], images)
-    values = correctness.readings(lead.capture, reference, bad, whole_gen=cell.deepvoxels)
+    values = correctness.readings(lead.capture, reference, bad)
     peak = max(peaks or [lead.peak_bytes])
     out = {"iterations": lead.iterations, "window_s": lead.window_s, "compared": values, "batches": batches,
            "worst_grad_leaves": correctness.worst_leaves(lead.capture.grad_norms, reference.grad_norms),
-           "worst_change_leaves": correctness.worst_leaves(*correctness.change_norms(lead.capture, reference,
-                                                                                     cell.deepvoxels)),
+           "worst_change_leaves": correctness.worst_leaves(*correctness.change_norms(lead.capture, reference)),
            "first_iteration_wall": lead.first_iteration_wall, "peak_bytes": peak, "batch": cell.batch,
            "device": device_info(device, cell.ranks, peak), "launches": lead.launches}
     if traced:

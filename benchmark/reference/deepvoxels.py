@@ -15,19 +15,23 @@ same function on these cameras.
 Quirks kept, as published: the frustum's y uses float division
 (``projection.py:67``), the 3D conv's fan-in counts ``k**2``, the refiner's
 last conv has gain 0.5, the occlusion threshold is 4, the latents are plain
-N(0, 1).
+N(0, 1). Below them, the architecture's part of the reference step (the
+items ``reference/step.py`` names).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from .geometry import camera_matrices, depth_floor, rotate_consistency_loss, sample_poses
 from .layers import AdaINBlock, EqualizedConv2D, EqualizedConv3D, EqualizedLinear, leaky_relu, upscale2x, upscale2x_3d
+from .step import LOSS_KEYS, ClippedAdam, _dis_loss, _pool_to, _unit, update
 from .stylegan import MappingNetwork
 
 GRID_DIM = 32
@@ -42,6 +46,9 @@ PROJECTION_INTRINSIC = np.array(
     [[FOCAL, 0.0, CENTER, 0.0], [0.0, FOCAL, CENTER, 0.0], [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]],
     dtype="float32",
 )
+STAGE, ALPHA = 8, 0.5  # the pinned stage and fade-in of the discriminator
+LAZY_R1 = False
+TINY = {"keys": {"ch": 8}, "rank_batch": 2}
 
 
 def frustum_camera_coords() -> np.ndarray:
@@ -205,3 +212,75 @@ class DeepVoxelsGenerator(nn.Module):
         depth = (depth_norm + 0.5) * FRUSTUM_DEPTH * VOXEL_SIZE + NEAR_PLANE
         rgb = self.style_generator(feats.to(w2.dtype), w2).float()
         return torch.cat([rgb, depth.float()], dim=-1)
+
+
+def generator(cfg: dict, dtype: Optional[torch.dtype], generator: Optional[torch.Generator]) -> nn.Module:
+    return DeepVoxelsGenerator(cfg["ch"], cfg.get("accumulative_threshold") or 4.0, dtype, generator)
+
+
+def domains(cfg: dict, gen: DeepVoxelsGenerator) -> Dict[str, ClippedAdam]:
+    a_g, b1, b2 = cfg["adam_alpha_g"], cfg["adam_beta1"], cfg["adam_beta2"]
+    return {"map": ClippedAdam([(list(gen.mapping.named_parameters()), a_g / 100, 1.0)], b1, b2, "gen.mapping."),
+            "gen": ClippedAdam([(list(gen.named_parameters()), a_g, 1.0)], b1, b2, "gen.")}
+
+
+def draws(cfg: dict, generator: Optional[torch.Generator], batch: int, device) -> Dict[str, torch.Tensor]:
+    """Plain N(0, 1) latents (batch, ch): ``z`` and ``z2`` paired (a latent
+    for both views) for the G phase, the paired poses ``thetas6``, then
+    ``z_d`` and ``z2_d`` unpaired for the D phase."""
+    ch, half = int(cfg["ch"]), batch // 2
+    out = {k: torch.randn(half, ch, generator=generator, device=device).repeat(2, 1) for k in ("z", "z2")}
+    out["thetas6"] = sample_poses(generator, cfg, batch, device)
+    out.update({k: torch.randn(batch, ch, generator=generator, device=device) for k in ("z_d", "z2_d")})
+    return out
+
+
+def kernel_calls(local_batch: int, image_px: int) -> Dict[str, tuple]:
+    """K1/K2 once each on the 64 px renders (the 3D loss, C = 4); the lift of
+    every render at every frustum cell, twice forward (G and D phase), once backward."""
+    gather, lift_shape = (local_batch, PROJ_DIM**2, 4), (local_batch, FRUSTUM_DEPTH * PROJ_DIM**2, NUM_GRID_FEATS)
+    return {"bilinear_fwd": (gather, 1), "bilinear_bwd": (gather, 1),
+            "lift_fwd": (lift_shape, 2), "lift_bwd": (lift_shape, 1)}
+
+
+def step(cfg: dict, models, opts, shards, iteration: int) -> Dict[str, torch.Tensor]:
+    """RGBD-GAN's ``DeepVoxelsUpdater`` (``updater_deepvoxels.py:76-252``)
+    over ``shards`` (each ``x`` uint8 and the draws): the StyleGAN step's G
+    phase with the focal adversarial loss, the projection intrinsic in the
+    3D loss, 0.3 x (3D loss + 10 x depth floor), no occlusion mask; the
+    mapping is stepped twice from the same gradients (its own Adam and the
+    whole generator's); the D phase renders the unpaired latents through
+    the updated generator without gradient, and pays R1 every step."""
+    gen, dis = models["gen"], models["dis"]
+    stage, alpha = STAGE, ALPHA
+    gamma = cfg.get("focal_loss_gamma") or 0.0
+    metrics = {k: [] for k in LOSS_KEYS}
+
+    def gen_loss(s):
+        def fn():
+            half = s["z"].shape[0] // 2
+            mats = camera_matrices(s["thetas6"])
+            x_fake = gen(s["z"], mats, s["z2"])
+            y = dis(x_fake[..., :3], stage, alpha)
+            loss = torch.mean(F.softplus(-y) * torch.sigmoid(-y) ** gamma)
+            metrics["gen/loss_adv"].append(loss.detach())
+            rot = rotate_consistency_loss(x_fake[:half], mats[:half], x_fake[half:], mats[half:],
+                                          occlusion_aware=False, lambda_geometric=3.0,
+                                          base_k=PROJECTION_INTRINSIC)
+            rot = rot + cfg["lambda_depth"] * depth_floor(x_fake, cfg["depth_min"])
+            metrics["gen/loss_rotate"].append(rot.detach())
+            return loss + rot * 0.3
+        return fn
+
+    update(gen, [opts["map"], opts["gen"]], [gen_loss(s) for s in shards])
+
+    def dis_loss(s):
+        def fn():
+            with torch.no_grad():
+                fake = gen(s["z_d"], camera_matrices(s["thetas6"]), s["z2_d"])[..., :3]
+            real = _pool_to(_unit(s["x"]), PROJ_DIM)
+            return _dis_loss(dis, fake, real, stage, alpha, cfg["lambda_gp"], metrics)
+        return fn
+
+    update(dis, [opts["dis"]], [dis_loss(s) for s in shards])
+    return {k: torch.stack(v).mean() for k, v in metrics.items()}

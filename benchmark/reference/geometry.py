@@ -124,11 +124,12 @@ def depth_floor(img: torch.Tensor, depth_min: float) -> torch.Tensor:
     return torch.mean(torch.relu(depth_min - img[..., -1]) ** 2)
 
 
-def sample_poses(generator: Optional[torch.Generator], batch: int, ranges, rotation_ranges, uniform: bool,
-                 device) -> torch.Tensor:
+def sample_poses(generator: Optional[torch.Generator], cfg: dict, batch: int, device) -> torch.Tensor:
     """Paired 6-DoF poses (``train_rgbd.py:192-217``): ``theta1 ~ U(-1, 1)^6``
     and ``theta2 = theta1 - eps * sign(theta1)``, ``eps ~ U(0, 0.5)``, both
-    scaled by the per-axis range."""
+    scaled by the configuration's per-axis range (``x_rotate`` ... ``z_translate``)."""
+    ranges = [cfg[f"{axis}_{kind}"] for kind in ("rotate", "translate") for axis in "xyz"]
+    rotation_ranges, uniform = ranges[:3], bool(cfg.get("uniform_distribution"))
     half = batch // 2
     kw = dict(generator=generator, device=device)
     thetas = torch.rand(half, 6, **kw) * 2.0 - 1.0

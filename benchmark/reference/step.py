@@ -1,55 +1,50 @@
-"""Plain PyTorch training steps of RGBD-GAN, for the benchmark's reference.
+"""Plain PyTorch training steps of RGBD-GAN, for the benchmark's reference:
+the parts every architecture shares, and the lookup of the rest.
 
-A frozen copy of the published updaters as the benchmark's configurations
-run them, written as plainly as possible: RGBD-GAN's ``RGBDUpdater``
-(``updater.py:274-448``, the StyleGAN step) and ``DeepVoxelsUpdater``
-(``updater_deepvoxels.py:76-252``), with Adam after a global-norm clip at 5
-(``train_rgbd.py:151-161``). Each step takes its latents and poses from the
-caller. Data parallelism is the mean of the per-rank gradients: the step
-takes one shard of inputs per rank, computes each shard's gradients with
-the same parameters, averages them, and applies one update (the metrics are
-averaged too).
+A frozen copy of the published updaters, as plain as possible: Adam after
+a global-norm clip at 5 (``train_rgbd.py:151-161``), the discriminator's
+loss and R1 (``lambda_gp`` x the batch mean of the squared input-gradient
+norm, by double backward). A step takes its draws from the caller, and a
+shard of inputs a rank: data parallelism is the shards' mean gradients.
 
-One StyleGAN iteration: the generator renders both views of each latent
-pair, its loss is the non-saturating adversarial loss plus 2 x (the L1
-3D-consistency loss + 10 x the depth floor); Adam steps the mapping network
-at alpha/100 (its own clipping domain) and the synthesis network (the
-camera layers ``l1``/``l2`` at alpha/100). The discriminator then sees the
-pre-update fakes, detached, and the reals, and pays R1 (``lambda_gp`` x
-the batch mean of the squared input-gradient norm) every ``r1_interval``
-steps, weighted by the interval.
+What depends on the generator's architecture lives in the module
+``reference/<generator_architecture>.py``, found by that name; a new
+architecture adds its module and edits no other file. The module holds:
 
-One DeepVoxels iteration: the same G phase with the focal adversarial loss
-(gamma from the configuration), the projection intrinsic in the 3D loss,
-0.3 x (3D loss + 10 x depth floor), no occlusion mask; the mapping network
-is stepped twice from the same gradients (its own optimizer and the whole
-generator's); the D phase renders fresh unpaired latents through the
-updated generator without gradient, and pays R1 every step.
+- ``generator(cfg, dtype, generator)``: the generator, its weights drawn first
+- ``domains(cfg, gen)``: its Adams, ``{name: ClippedAdam}``, each with the
+  prefix of its parameters' names (D's, ``dis``, is added here)
+- ``draws(cfg, generator, batch, device)``: a checked step's latents and
+  poses, in a fixed order (on ``meta``: a shard's shapes, for the FLOP count)
+- ``step(cfg, models, opts, shards, iteration)``: at its pinned stage
+- ``kernel_calls(local_batch, image_px)``: ``{kind: ((B, N, C), calls)}``
+  of the hand-written kernels a rank's step makes
+- ``LAZY_R1``: whether a step can skip R1; ``TINY``: the tiny test cells'
+  ``keys``, ``rank_batch`` and ``px``
 """
 
 from __future__ import annotations
 
+import importlib
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import deepvoxels as dv
-from .geometry import camera_matrices, depth_floor, rotate_consistency_loss, theta_to_9dof
-from .stylegan import Discriminator, StyleGANGenerator
-
 MAX_NORM = 5.0
 EPS = 1e-8
-DEEPVOXELS_STAGE, DEEPVOXELS_ALPHA, DEEPVOXELS_PX = 8, 0.5, 64
+LOSS_KEYS = ("gen/loss_adv", "gen/loss_rotate", "dis/loss_adv", "dis/loss_gp")
 
 
 class ClippedAdam:
     """Adam(beta1, beta2, eps 1e-8) after clipping the domain's gradients to
-    global norm 5; ``groups``: ``[(named_params, lr, scale)]``."""
+    global norm 5; ``groups``: ``[(named_params, lr, scale)]``; ``prefix``
+    makes a leaf's name the parameter's (``gen.gen.`` + ``block0.b0``)."""
 
-    def __init__(self, groups, beta1: float, beta2: float):
-        self.beta1, self.beta2 = beta1, beta2
+    def __init__(self, groups, beta1: float, beta2: float, prefix: str):
+        self.beta1, self.beta2, self.prefix = beta1, beta2, prefix
         self.leaves: List[Tuple[str, torch.Tensor, float]] = []
         for named, lr, scale in groups:
             self.leaves += [(name, p, lr * scale) for name, p in named]
@@ -79,34 +74,48 @@ class ClippedAdam:
         return {name: m for (name, _, _), m in zip(self.leaves, self.mu)}
 
 
+def architecture(cfg: dict) -> ModuleType:
+    """The reference module of ``cfg``'s generator: ``reference/<generator_architecture>.py``."""
+    name = f"{__package__}.{cfg['generator_architecture']}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ModuleNotFoundError(f"no reference module {name} for generator_architecture "
+                                  f"{cfg['generator_architecture']!r}", name=name) from None
+
+
 def build(cfg: dict, generator: torch.Generator, device) -> Dict[str, torch.nn.Module]:
     """The generator and the discriminator of ``cfg`` (the configuration's
     yml keys), their weights drawn from ``generator`` on ``device``."""
+    from .stylegan import Discriminator  # the shared D; stylegan.py imports this module
+
     dtype = torch.bfloat16 if cfg.get("mixed16") else None
     with torch.device(device):
-        if cfg["generator_architecture"] == "deepvoxels":
-            gen = dv.DeepVoxelsGenerator(cfg["ch"], cfg.get("accumulative_threshold") or 4.0, dtype, generator)
-        else:
-            gen = StyleGANGenerator(cfg["ch"], cfg.get("initial_depth") or 1.0, dtype, generator)
+        gen = architecture(cfg).generator(cfg, dtype, generator)
         dis = Discriminator(cfg["ch"], bool(cfg.get("res_dis")), dtype, generator)
     # buffers made from numpy (the frustum's lattice) land on the host: move them too
     return {"gen": gen.to(device).requires_grad_(False), "dis": dis.to(device).requires_grad_(False)}
 
 
 def optimizers(cfg: dict, models) -> Dict[str, ClippedAdam]:
-    """One Adam per clipping domain (``train_rgbd.py:314-343``)."""
-    gen, dis = models["gen"], models["dis"]
-    a_g, a_d, b1, b2 = cfg["adam_alpha_g"], cfg["adam_alpha_d"], cfg["adam_beta1"], cfg["adam_beta2"]
-    opts = {"map": ClippedAdam([(list(gen.mapping.named_parameters()), a_g / 100, 1.0)], b1, b2),
-            "dis": ClippedAdam([(list(dis.named_parameters()), a_d, 1.0)], b1, b2)}
-    if cfg["generator_architecture"] == "deepvoxels":
-        opts["gen"] = ClippedAdam([(list(gen.named_parameters()), a_g, 1.0)], b1, b2)
-    else:
-        named = list(gen.gen.named_parameters())
-        slow = [(n, p) for n, p in named if n.split(".")[0] in ("l1", "l2")]
-        fast = [(n, p) for n, p in named if n.split(".")[0] not in ("l1", "l2")]
-        opts["gen"] = ClippedAdam([(fast, a_g, 1.0), (slow, a_g, 0.01)], b1, b2)
-    return opts
+    """One Adam per clipping domain (``train_rgbd.py:314-343``): the
+    generator's, as its architecture splits it, and the discriminator's."""
+    dis = ClippedAdam([(list(models["dis"].named_parameters()), cfg["adam_alpha_d"], 1.0)],
+                      cfg["adam_beta1"], cfg["adam_beta2"], "dis.")
+    return {**architecture(cfg).domains(cfg, models["gen"]), "dis": dis}
+
+
+def update(module, domains: Sequence[ClippedAdam], loss_fns) -> None:
+    """One update of ``module``: the shards' mean gradients of every
+    domain's leaves in one pass, then each domain's Adam in turn."""
+    module.requires_grad_(True)
+    grads = _mean_grads(loss_fns, [p for opt in domains for p in opt.params])
+    for opt in domains:
+        opt.step(grads[:len(opt.params)])
+        grads = grads[len(opt.params):]
+    module.requires_grad_(False)
 
 
 def _mean_grads(loss_fns, params):
@@ -151,92 +160,3 @@ def _dis_loss(dis, x_fake_rgb, x_real, stage, alpha, gp_weight: float, metrics):
     loss = torch.mean(F.softplus(y_fake)) + torch.mean(F.softplus(-y_real)) + gp
     metrics["dis/loss_adv"].append(loss.detach())
     return loss
-
-
-def stylegan_step(cfg: dict, models, opts, shards, iteration: int, stage: int, alpha: float) -> Dict[str, torch.Tensor]:
-    """One RGBD StyleGAN step over ``shards`` (each a dict of ``x`` uint8
-    (b, S, S, 3), ``z`` (b, 2ch), ``thetas6`` (b, 6)); returns the metrics
-    averaged over the shards (0-dim tensors)."""
-    gen, dis = models["gen"], models["dis"]
-    metrics = {k: [] for k in ("gen/loss_adv", "gen/loss_rotate", "dis/loss_adv", "dis/loss_gp")}
-    size = 4 * 2 ** (stage // 2)
-    fakes = []
-
-    def gen_loss(s):
-        def fn():
-            half = s["z"].shape[0] // 2
-            mats = camera_matrices(s["thetas6"])
-            x_fake = gen(s["z"], stage, alpha, theta_to_9dof(s["thetas6"]))
-            fakes.append(x_fake[..., :3].detach())
-            loss = torch.mean(F.softplus(-dis(x_fake[..., :3], stage, alpha)))
-            metrics["gen/loss_adv"].append(loss.detach())
-            rot = rotate_consistency_loss(x_fake[:half], mats[:half], x_fake[half:], mats[half:],
-                                          occlusion_aware=True, lambda_geometric=3.0)
-            rot = rot + cfg["lambda_depth"] * depth_floor(x_fake, cfg["depth_min"])
-            metrics["gen/loss_rotate"].append(rot.detach())
-            return loss + rot * (2.0 if size <= 128 else 4.0)
-        return fn
-
-    gen.requires_grad_(True)
-    params = opts["map"].params + opts["gen"].params
-    grads = _mean_grads([gen_loss(s) for s in shards], params)
-    n_map = len(opts["map"].params)
-    opts["map"].step(grads[:n_map])
-    opts["gen"].step(grads[n_map:])
-    gen.requires_grad_(False)
-
-    interval = int(cfg.get("r1_interval") or 1)
-    gp_weight = cfg["lambda_gp"] * interval if iteration % interval == 0 else 0.0
-    dis.requires_grad_(True)
-    grads = _mean_grads([
-        (lambda s=s, f=f: _dis_loss(dis, f, _pool_to(_unit(s["x"]), size), stage, alpha, gp_weight, metrics))
-        for s, f in zip(shards, fakes)], opts["dis"].params)
-    opts["dis"].step(grads)
-    dis.requires_grad_(False)
-    return {k: torch.stack(v).mean() for k, v in metrics.items()}
-
-
-def deepvoxels_step(cfg: dict, models, opts, shards, iteration: int) -> Dict[str, torch.Tensor]:
-    """One DeepVoxels step over ``shards`` (each a dict of ``x`` uint8,
-    ``z``, ``z2`` (paired), ``thetas6``, ``z_d``, ``z2_d`` (unpaired))."""
-    gen, dis = models["gen"], models["dis"]
-    stage, alpha = DEEPVOXELS_STAGE, DEEPVOXELS_ALPHA
-    gamma = cfg.get("focal_loss_gamma") or 0.0
-    metrics = {k: [] for k in ("gen/loss_adv", "gen/loss_rotate", "dis/loss_adv", "dis/loss_gp")}
-
-    def gen_loss(s):
-        def fn():
-            half = s["z"].shape[0] // 2
-            mats = camera_matrices(s["thetas6"])
-            x_fake = gen(s["z"], mats, s["z2"])
-            y = dis(x_fake[..., :3], stage, alpha)
-            loss = torch.mean(F.softplus(-y) * torch.sigmoid(-y) ** gamma)
-            metrics["gen/loss_adv"].append(loss.detach())
-            rot = rotate_consistency_loss(x_fake[:half], mats[:half], x_fake[half:], mats[half:],
-                                          occlusion_aware=False, lambda_geometric=3.0,
-                                          base_k=dv.PROJECTION_INTRINSIC)
-            rot = rot + cfg["lambda_depth"] * depth_floor(x_fake, cfg["depth_min"])
-            metrics["gen/loss_rotate"].append(rot.detach())
-            return loss + rot * 0.3
-        return fn
-
-    gen.requires_grad_(True)
-    n_map = len(opts["map"].params)
-    grads = _mean_grads([gen_loss(s) for s in shards], opts["map"].params + opts["gen"].params)
-    opts["map"].step(grads[:n_map])
-    opts["gen"].step(grads[n_map:])
-    gen.requires_grad_(False)
-
-    def dis_loss(s):
-        def fn():
-            with torch.no_grad():
-                fake = gen(s["z_d"], camera_matrices(s["thetas6"]), s["z2_d"])[..., :3]
-            real = _pool_to(_unit(s["x"]), DEEPVOXELS_PX)
-            return _dis_loss(dis, fake, real, stage, alpha, cfg["lambda_gp"], metrics)
-        return fn
-
-    dis.requires_grad_(True)
-    opts["dis"].step(_mean_grads([dis_loss(s) for s in shards], opts["dis"].params))
-    dis.requires_grad_(False)
-    return {k: torch.stack(v).mean() for k, v in metrics.items()}
-

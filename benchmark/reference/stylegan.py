@@ -12,17 +12,20 @@ float32 parameters; the mapping, the heads and the blend stay float32.
 
 Parameter names and construction order are those of the published
 checkpoints (``gen.block0.c1.weight``, ``block5.c_sc.weight``), so one state
-dict loads into either implementation.
+dict loads into either implementation. Below them, the architecture's
+part of the reference step (the items ``reference/step.py`` names).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .geometry import camera_matrices, depth_floor, rotate_consistency_loss, sample_poses, theta_to_9dof
 from .layers import (
     AdaINBlock,
     EqualizedConv2D,
@@ -34,8 +37,11 @@ from .layers import (
     pixel_norm,
     upscale2x,
 )
+from .step import LOSS_KEYS, ClippedAdam, _dis_loss, _pool_to, _unit, update
 
 MAX_STAGE = 17
+LAZY_R1 = True
+TINY = {"keys": {"ch": 16, "max_stage": 7, "stage_interval": "0,0,0,0,0,0,0,0"}, "rank_batch": 4, "px": 32}
 
 
 class MappingNetwork(nn.Module):
@@ -196,3 +202,73 @@ class Discriminator(nn.Module):
             for i in reversed(range(0, k + 1)):
                 h = block(i)(h)
         return h.float()
+
+
+def generator(cfg: dict, dtype: Optional[torch.dtype], generator: Optional[torch.Generator]) -> nn.Module:
+    return StyleGANGenerator(cfg["ch"], cfg.get("initial_depth") or 1.0, dtype, generator)
+
+
+def domains(cfg: dict, gen: StyleGANGenerator) -> Dict[str, ClippedAdam]:
+    a_g, b1, b2 = cfg["adam_alpha_g"], cfg["adam_beta1"], cfg["adam_beta2"]
+    named = list(gen.gen.named_parameters())
+    slow = [(n, p) for n, p in named if n.split(".")[0] in ("l1", "l2")]
+    fast = [(n, p) for n, p in named if n.split(".")[0] not in ("l1", "l2")]
+    return {"map": ClippedAdam([(list(gen.mapping.named_parameters()), a_g / 100, 1.0)], b1, b2, "gen.mapping."),
+            "gen": ClippedAdam([(fast, a_g, 1.0), (slow, a_g, 0.01)], b1, b2, "gen.gen.")}
+
+
+def draws(cfg: dict, generator: Optional[torch.Generator], batch: int, device) -> Dict[str, torch.Tensor]:
+    """``z`` (batch, 2ch): a latent a pair, normalised by ``sqrt(sum/ch)``,
+    both views of the pair; ``thetas6``: the paired poses."""
+    ch = int(cfg["ch"])
+    z = torch.randn(batch // 2, ch * 2, generator=generator, device=device)
+    z = z / torch.sqrt(torch.sum(z * z, dim=1, keepdim=True) / ch + 1e-8)
+    return {"z": z.repeat(2, 1), "thetas6": sample_poses(generator, cfg, batch, device)}
+
+
+def kernel_calls(local_batch: int, image_px: int) -> Dict[str, tuple]:
+    """The 3D-consistency loss gathers both directions of each render pair
+    in one call: K1/K2 once each, the local batch, H*W points, C = 4 (RGBD)."""
+    gather = ((local_batch, image_px * image_px, 4), 1)
+    return {"bilinear_fwd": gather, "bilinear_bwd": gather}
+
+
+def step(cfg: dict, models, opts, shards, iteration: int) -> Dict[str, torch.Tensor]:
+    """RGBD-GAN's ``RGBDUpdater`` (``updater.py:274-448``) over ``shards``
+    (each ``x`` uint8 (b, S, S, 3), ``z``, ``thetas6``) at the stage the
+    program's schedule gives at ``max_stage``: G renders both views of each
+    pair, its loss the non-saturating one plus 2 x (the L1 3D-consistency
+    loss + 10 x the depth floor); Adam steps the mapping at alpha/100 and
+    the synthesis network (its camera layers ``l1``/``l2`` at alpha/100).
+    D then sees the pre-update fakes, detached, and the reals, and pays R1
+    every ``r1_interval`` steps, weighted by the interval. Returns the
+    metrics averaged over the shards (0-dim tensors)."""
+    gen, dis = models["gen"], models["dis"]
+    pinned = cfg["max_stage"] - 1e-8
+    stage, alpha = int(math.floor(pinned)), pinned - math.floor(pinned)
+    metrics = {k: [] for k in LOSS_KEYS}
+    size = 4 * 2 ** (stage // 2)
+    fakes = []
+
+    def gen_loss(s):
+        def fn():
+            half = s["z"].shape[0] // 2
+            mats = camera_matrices(s["thetas6"])
+            x_fake = gen(s["z"], stage, alpha, theta_to_9dof(s["thetas6"]))
+            fakes.append(x_fake[..., :3].detach())
+            loss = torch.mean(F.softplus(-dis(x_fake[..., :3], stage, alpha)))
+            metrics["gen/loss_adv"].append(loss.detach())
+            rot = rotate_consistency_loss(x_fake[:half], mats[:half], x_fake[half:], mats[half:],
+                                          occlusion_aware=True, lambda_geometric=3.0)
+            rot = rot + cfg["lambda_depth"] * depth_floor(x_fake, cfg["depth_min"])
+            metrics["gen/loss_rotate"].append(rot.detach())
+            return loss + rot * (2.0 if size <= 128 else 4.0)
+        return fn
+
+    update(gen, [opts["map"], opts["gen"]], [gen_loss(s) for s in shards])
+    interval = int(cfg.get("r1_interval") or 1)
+    gp_weight = cfg["lambda_gp"] * interval if iteration % interval == 0 else 0.0
+    update(dis, [opts["dis"]], [
+        (lambda s=s, f=f: _dis_loss(dis, f, _pool_to(_unit(s["x"]), size), stage, alpha, gp_weight, metrics))
+        for s, f in zip(shards, fakes)])
+    return {k: torch.stack(v).mean() for k, v in metrics.items()}

@@ -112,6 +112,7 @@ def checked_steps(loop: Loop, cell: Cell, seed: int, rank: int, device) -> corre
         cap.losses.append({k: float(metrics[k]) for k in correctness.LOSS_KEYS})
         if i == 0:
             opts = {"map": trainer.state.opt_map, "gen": trainer.state.opt_gen, "dis": trainer.state.opt_dis}
+            opts = {k: o for k, o in opts.items() if o is not None}  # a generator without a mapping network has no map
             cap.grad_norms = correctness.grad_norms_of(opts, cell.config["adam_beta1"])
     cap.params = {k: v - init[k] for k, v in correctness.params_of(modules).items()}
     return cap

@@ -7,6 +7,7 @@ from __future__ import annotations
 import pytest
 
 from benchmark import bounds
+from benchmark.cell import load_cell
 
 # (kind, (B, N, C), the card's time in ms at those shapes: PERF.md section 6, NVIDIA H100, 700 W)
 MEASURED = [
@@ -31,13 +32,14 @@ def test_bytes_by_hand():
     assert bounds.bound_bytes("lift_fwd", 10, 229376, 32) == 10 * 229376 * (3 * 4 + 1 + 32 * 4)
 
 
-@pytest.mark.parametrize("deepvoxels, batch, px, kinds", [
-    (False, 32, 128, {"bilinear_fwd": ((32, 16384, 4), 1), "bilinear_bwd": ((32, 16384, 4), 1)}),
-    (True, 10, 64, {"bilinear_fwd": ((10, 4096, 4), 1), "bilinear_bwd": ((10, 4096, 4), 1),
-                    "lift_fwd": ((10, 229376, 32), 2), "lift_bwd": ((10, 229376, 32), 1)}),
+@pytest.mark.parametrize("workload, kinds", [
+    ("stylegan_ffhq.f32_r1", {"bilinear_fwd": ((32, 16384, 4), 1), "bilinear_bwd": ((32, 16384, 4), 1)}),
+    ("deepvoxels_car.f32", {"bilinear_fwd": ((10, 4096, 4), 1), "bilinear_bwd": ((10, 4096, 4), 1),
+                            "lift_fwd": ((10, 229376, 32), 2), "lift_bwd": ((10, 229376, 32), 1)}),
 ])
-def test_call_shapes(deepvoxels, batch, px, kinds):
-    assert bounds.call_shapes(deepvoxels, batch, px) == kinds
+def test_call_shapes(workload, kinds):
+    cell = load_cell(workload)
+    assert cell.architecture.kernel_calls(cell.local_batch, cell.image_px) == kinds
 
 
 @pytest.mark.parametrize("name, kind", [

@@ -51,7 +51,7 @@ def test_control_is_not_correct(workload):
     batches = _run(cell)["batches"]
     reference = correctness.run_reference(cell, SEED, batches, "cpu")
     control = correctness.run_reference(cell, SEED, batches, "cpu", rounding=CONTROL_ROUNDING[cell.precision])
-    values = correctness.readings(control, reference, 0, cell.deepvoxels)
+    values = correctness.readings(control, reference, 0)
     assert not correctness.judge(values, cell.limits), values
 
 
