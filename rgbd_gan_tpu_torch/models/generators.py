@@ -57,7 +57,7 @@ from ..nn.layers import (
     pixel_norm,
     upscale2x,
 )
-
+from ..utils import trace
 from .extras import OccupancyNet
 
 MAX_STAGE = 17
@@ -340,8 +340,17 @@ class DCGANBlock(nn.Module):
         h = upscale2x(x)
         if self.enable_blur:
             h = blur3x3(h)
-        h = l2_normalize_channels(leaky_relu(self.c0(h) + self.b0.to(h.dtype)))
-        return l2_normalize_channels(leaky_relu(self.c1(h) + self.b1.to(h.dtype)))
+        h = _chnorm_epilogue(self.c0(h), self.b0)
+        return _chnorm_epilogue(self.c1(h), self.b1)
+
+
+def _chnorm_epilogue(h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A DCGAN conv's epilogue: bias, leaky ReLU, the L2 norm over the
+    channels, in the span ``gen.chnorm``, counting the elements normalised
+    (``chnorm.elems``)."""
+    with trace.span("gen.chnorm"):
+        trace.count("chnorm.elems", h.numel())
+        return l2_normalize_channels(leaky_relu(h + bias.to(h.dtype)))
 
 
 class DCGANGenerator(nn.Module):
